@@ -1,0 +1,405 @@
+"""MatchSpec → MatchPlan engine — one plan/execute API for the port.
+
+The port's counterpart of the JAX package's ``core/engine.py``, for the
+sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``):
+
+    spec = MatchSpec(algo="sbm")                 # backend="cuda", device="cuda"
+    plan = build_plan(spec, n_sub=S.n, n_upd=U.n, d=S.d)
+    k = plan.count(S, U)                         # exact K, int64-safe
+    res, k = plan.pairs(S, U)                    # DensePairs, −1-padded
+
+Backends
+--------
+``cuda``   the counterpart of ``pallas``: sorts and searchsorted are
+           library calls, the sweep (``count``) and the pass-2 emit
+           (``pairs``) are the hand-written kernels K1 and K2
+           (``kernels/``).  The default.
+``torch``  the counterpart of ``xla``: the plain tensor code of
+           ``core.sbm`` on any device.
+
+``device`` names where the plan's buffers live and where its inputs
+must be; it defaults to ``cuda``, and ``cuda`` without a card raises
+``RuntimeError``.  The CUDA kernel wrappers run their plain versions
+for tensors on the CPU, so a ``device="cpu"`` plan exercises the
+``cuda`` backend's control flow with the kernels' plain versions.
+
+Capacity policies (buffer sizing for ``pairs()``)
+-------------------------------------------------
+``exact``  run the counting pass first, size the buffer to exactly K.
+``fixed``  caller-supplied ``max_pairs``; truncation reports the true K.
+``grow``   power-of-two buffer, re-emitted doubled on overflow and
+           memoized.  Floored at ``max_pairs`` when given.
+
+d > 1 enumerates dim-0 candidates with the 1-D path, sized exactly by
+the binary-search per-subscription counts, and filters dimensions
+1..d-1 (``sbm_verify_dims``).  Zero-region inputs give K = 0 and an
+all-−1 buffer without launching a kernel.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+Queue 1 item: the other algorithms, the distributed backend, ``mask()``
+and ``query()``.  PyTorch runs eagerly, so there is no jit cache and no
+trace counter (the recompile audit is item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import sbm
+from .pairs import DensePairs, PairsResult, to_numpy
+from .regions import Regions, resolve_device
+
+ALGOS = ("bfm", "gbm", "sbm", "sbm_chunked", "sbm_binary", "hsbm", "itm")
+BACKENDS = ("torch", "cuda", "distributed")
+CAPACITY_POLICIES = ("exact", "fixed", "grow")
+EMIT_ROUTES = ("auto", "resident", "streaming", "csr", "xla")
+
+# what is not ported yet, and where the ROADMAP queues it
+_NOT_PORTED = {
+    "bfm": "ROADMAP Queue 1 item 5",
+    "gbm": "ROADMAP Queue 1 items 5 and 7",
+    "hsbm": "ROADMAP Queue 1 item 7",
+    "itm": "ROADMAP Queue 1 item 8",
+    "distributed": "ROADMAP Queue 1 item 9",
+    "streaming": "ROADMAP Queue 1 item 6",
+    "csr": "ROADMAP Queue 1 item 6",
+}
+
+
+def _not_ported(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet ({_NOT_PORTED[key]})")
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length() if x > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchSpec:
+    """Frozen, hashable description of *how* to match.
+
+    ``algo``/``backend``/``capacity`` select the path; ``max_pairs`` is
+    the fixed cap or grow floor, ``p`` the chunked-SBM segment count,
+    ``emit_route`` the pass-2 route, ``device`` where the plan runs.
+    """
+
+    algo: str = "sbm"
+    backend: str = "cuda"
+    capacity: str = "exact"
+    d: int | None = None           # declared dimensionality (optional)
+    max_pairs: int | None = None   # fixed cap / grow floor
+    p: int = 8                     # chunked-SBM segments
+    emit_route: str = "auto"       # pass-2 route (kernels.ops)
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.algo not in ALGOS:
+            raise ValueError(f"algo must be one of {ALGOS}, got {self.algo}")
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be one of {BACKENDS}, got {self.backend}")
+        if self.capacity not in CAPACITY_POLICIES:
+            raise ValueError(
+                f"capacity must be one of {CAPACITY_POLICIES}, "
+                f"got {self.capacity}")
+        if self.capacity == "fixed" and self.max_pairs is None:
+            raise ValueError("capacity='fixed' requires max_pairs")
+        if self.emit_route not in EMIT_ROUTES:
+            raise ValueError(f"emit_route must be one of {EMIT_ROUTES}, "
+                             f"got {self.emit_route}")
+        if self.d is not None and self.d < 1:
+            raise ValueError(f"d must be >= 1, got {self.d}")
+        if self.algo in _NOT_PORTED:
+            raise _not_ported(f"algo={self.algo!r}", self.algo)
+        if self.backend in _NOT_PORTED:
+            raise _not_ported(f"backend={self.backend!r}", self.backend)
+        if self.emit_route in _NOT_PORTED:
+            raise _not_ported(f"emit_route={self.emit_route!r}",
+                              self.emit_route)
+
+
+class MatchPlan:
+    """Matcher for one ``(spec, n_sub, n_upd, d)`` problem shape.
+
+    Holds the resolved device and the memoized capacities of the
+    ``exact``/``grow`` policies.
+    """
+
+    def __init__(self, spec: MatchSpec, n_sub: int, n_upd: int, d: int):
+        if d < 1:
+            raise ValueError(f"d must be >= 1, got {d}")
+        if spec.d is not None and spec.d != d:
+            raise ValueError(
+                f"spec declares d={spec.d} but the plan is built for "
+                f"d={d}")
+        self.spec = spec
+        self.device = resolve_device(spec.device)
+        self.n_sub = int(n_sub)
+        self.n_upd = int(n_upd)
+        self.d = int(d)
+        self._cap: int | None = None        # memoized output capacity
+        self._cand_cap: int | None = None   # memoized dim-0 candidate cap
+
+    def __repr__(self) -> str:
+        s = self.spec
+        return (f"MatchPlan(algo={s.algo}, backend={s.backend}, "
+                f"capacity={s.capacity}, n_sub={self.n_sub}, "
+                f"n_upd={self.n_upd}, d={self.d}, device={self.device})")
+
+    # -- plumbing -----------------------------------------------------------
+    def _check(self, S: Regions, U: Regions):
+        if (S.n, U.n) != (self.n_sub, self.n_upd) or S.d != self.d:
+            raise ValueError(
+                f"plan compiled for (n_sub={self.n_sub}, n_upd={self.n_upd},"
+                f" d={self.d}); got (n_sub={S.n}, n_upd={U.n}, d={S.d})")
+        for name, R in (("S", S), ("U", U)):
+            if R.device.type != self.device.type:
+                raise ValueError(
+                    f"{name} lives on {R.device} but the plan runs on "
+                    f"{self.device}; build the regions with "
+                    f"device={self.device.type!r}")
+
+    def _resolve_cap(self, exact_k: int) -> int:
+        """Output-buffer capacity under the plan's policy."""
+        pol = self.spec.capacity
+        if pol == "fixed":
+            return max(self.spec.max_pairs, 1)
+        if pol == "exact":
+            self._cap = max(exact_k, 1)
+            return self._cap
+        cap = _pow2(max(exact_k, self.spec.max_pairs or 1, 1))
+        self._cap = max(self._cap or 1, cap)
+        return self._cap
+
+    def _resolve_cand_cap(self, exact_c: int) -> int:
+        """Dim-0 candidate capacity (must hold EVERY dim-0 overlap)."""
+        if self.spec.capacity == "grow":
+            self._cand_cap = max(self._cand_cap or 1, _pow2(max(exact_c, 1)))
+            return self._cand_cap
+        self._cand_cap = max(exact_c, 1)
+        return self._cand_cap
+
+    def _project(self, R: Regions) -> Regions:
+        return Regions(R.lo[:, :1], R.hi[:, :1])
+
+    # -- counting -----------------------------------------------------------
+    def count(self, S: Regions, U: Regions) -> int:
+        """Exact number of overlapping (subscription, update) pairs."""
+        self._check(S, U)
+        if S.n == 0 or U.n == 0:
+            return 0
+        if self.d == 1:
+            return self._count_1d(S, U)
+        # d > 1: counting needs pair identity (match-then-verify); the
+        # count is exact regardless of the 1-slot output buffer.
+        _, k = self._pairs_impl(S, U, out_cap=1)
+        return k
+
+    def _count_1d(self, S: Regions, U: Regions) -> int:
+        spec = self.spec
+        algo = spec.algo
+        args = (S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0])
+        if spec.backend == "cuda" and algo in ("sbm", "sbm_chunked"):
+            from ..kernels import ops
+            return ops.sbm_count_cuda(S, U)
+        if algo == "sbm":
+            return sbm._total(sbm._sweep_contribs(*args))
+        if algo == "sbm_chunked":
+            return sbm._total(sbm._chunked_contribs(*args, p=spec.p))
+        if algo == "sbm_binary":
+            return sbm._total(sbm.sbm_count_per_sub(S, U))
+        raise AssertionError(algo)
+
+    # -- pair enumeration ---------------------------------------------------
+    def pairs(self, S: Regions, U: Regions):
+        """Enumerate overlaps: ``(DensePairs, count)``.
+
+        The buffer's capacity is resolved by the plan's policy; ``count``
+        (also ``result.count``) is the exact K even when a fixed buffer
+        truncates.
+        """
+        self._check(S, U)
+        spec = self.spec
+        if S.n == 0 or U.n == 0:
+            cap = self._resolve_cap(0)
+            return DensePairs(torch.full((cap, 2), -1, dtype=torch.int32,
+                                         device=self.device), 0), 0
+        if spec.capacity == "exact":
+            # the counting pass runs only when no capacity is memoized
+            # yet; later calls emit directly and re-emit once if K drifted
+            cap = self._cap
+            if cap is None:
+                cap = self._resolve_cap(self.count(S, U))
+            pairs, k = self._pairs_impl(S, U, out_cap=cap)
+            if max(k, 1) != cap:
+                cap = self._resolve_cap(k)
+                pairs, k = self._pairs_impl(S, U, out_cap=cap)
+            return DensePairs(pairs, k), k
+        if spec.capacity == "fixed":
+            pairs, k = self._pairs_impl(S, U,
+                                        out_cap=self._resolve_cap(0))
+            return DensePairs(pairs, k), k
+        # grow-by-doubling: every path reports the exact K, so at most
+        # one re-execution with the doubled (power-of-two) buffer
+        cap = self._resolve_cap(0)
+        pairs, k = self._pairs_impl(S, U, out_cap=cap)
+        if k > cap:
+            cap = self._resolve_cap(k)
+            pairs, k = self._pairs_impl(S, U, out_cap=cap)
+        return DensePairs(pairs, k), k
+
+    def _pairs_impl(self, S: Regions, U: Regions, out_cap: int):
+        """(pairs, exact K) with a caller-resolved output capacity."""
+        cand, k = self._pairs_sbm_dim0(
+            S, U, out_cap if self.d == 1 else self._cand_bound(S, U))
+        if self.d == 1:
+            return cand, k
+        pairs, count = sbm_verify_dims(S, U, cand, max_pairs=out_cap)
+        return pairs, int(count)
+
+    def _cand_bound(self, S: Regions, U: Regions) -> int:
+        """Exact dim-0 candidate count (binary-search per-sub counts)."""
+        c = sbm.sbm_count_per_sub(self._project(S), self._project(U))
+        return self._resolve_cand_cap(sbm._total(c))
+
+    def _pairs_sbm_dim0(self, S: Regions, U: Regions, cap: int):
+        spec = self.spec
+        S0, U0 = self._project(S), self._project(U)
+        if spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.twopass_pairs_cuda(S0, U0, cap, route=spec.emit_route)
+        return sbm.sbm_pairs(S0, U0, cap)
+
+    def validate_pairs(self, pairs, count: int | None = None) -> None:
+        """Host-side sanity check of a ``pairs()`` result buffer.
+
+        Raises ``ValueError`` naming the offending slots, their (s, u)
+        values, the valid ranges, and this plan's ``repr()``.  A pad row
+        is all −1; any partially-padded row is also an error.
+        """
+        if isinstance(pairs, PairsResult):
+            problems: list[str] = []
+            non_pad = 0
+            cap = pairs.cap
+            for w0, win in pairs.windows():
+                errs = describe_pair_range_errors(win, self.n_upd,
+                                                  self.n_sub)
+                problems.extend(f"{e} [window at slot {w0}]"
+                                for e in errs)
+                non_pad += int(np.sum(win[:, 0] >= 0))
+        else:
+            arr = to_numpy(pairs)
+            problems = describe_pair_range_errors(arr, self.n_upd,
+                                                  self.n_sub)
+            non_pad = int(np.sum(arr[:, 0] >= 0))
+            cap = arr.shape[0]
+        if count is not None:
+            want = min(count, cap)
+            if non_pad != want:
+                problems.append(
+                    f"buffer holds {non_pad} non-pad rows but the "
+                    f"reported count is {count} (capacity {cap})")
+        if problems:
+            raise ValueError("invalid pair buffer: "
+                             + "; ".join(problems) + f"; plan={self!r}")
+
+    # -- not ported yet -----------------------------------------------------
+    def mask(self, S: Regions, U: Regions):
+        """(n, m) boolean overlap mask — not ported yet (item 5)."""
+        raise NotImplementedError(
+            "MatchPlan.mask() is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 5)")
+
+    def query(self, tree, opp: Regions, q_lo, q_hi):
+        """Dynamic-service batched query — not ported yet (item 8)."""
+        raise NotImplementedError(
+            "MatchPlan.query() is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 8)")
+
+
+# ---------------------------------------------------------------------------
+# engine-level helpers
+# ---------------------------------------------------------------------------
+
+def select_rows(rows: torch.Tensor, keep: torch.Tensor,
+                cap: int) -> torch.Tensor:
+    """Rows where ``keep`` holds, in order, −1-padded (or cut) to ``cap``."""
+    sel = torch.nonzero(keep).flatten()[:cap]
+    out = torch.full((cap,) + tuple(rows.shape[1:]), -1, dtype=rows.dtype,
+                     device=rows.device)
+    out[:sel.shape[0]] = rows[sel]
+    return out
+
+
+def describe_pair_range_errors(arr: np.ndarray, m: int,
+                               n: int | None = None,
+                               max_report: int = 5) -> list[str]:
+    """Human-readable index-range problems in a −1-padded pair buffer.
+
+    ``arr`` is a host (cap, 2) int array; ``m``/``n`` are the update/
+    subscription set sizes.  Returns one message per problem class,
+    each naming up to ``max_report`` offending slots with their (s, u)
+    values and the valid range.
+    """
+    def _offenders(slots):
+        shown = ", ".join(
+            f"slot {int(t)}: (s={int(arr[t, 0])}, u={int(arr[t, 1])})"
+            for t in slots[:max_report])
+        more = f", … {len(slots) - max_report} more" \
+            if len(slots) > max_report else ""
+        return shown + more
+
+    problems: list[str] = []
+    non_pad = arr[:, 0] >= 0
+    bad_u = np.nonzero(non_pad & ((arr[:, 1] < 0) | (arr[:, 1] >= m)))[0]
+    if bad_u.size:
+        problems.append(
+            f"{bad_u.size} update index(es) outside [0, {m}): "
+            + _offenders(bad_u))
+    if n is not None:
+        bad_s = np.nonzero(non_pad & (arr[:, 0] >= n))[0]
+        if bad_s.size:
+            problems.append(
+                f"{bad_s.size} subscription index(es) outside [0, {n}): "
+                + _offenders(bad_s))
+    half_pad = np.nonzero(~non_pad & (arr[:, 1] >= 0))[0]
+    if half_pad.size:
+        problems.append(
+            f"{half_pad.size} half-padded row(s) (s is −1 pad but u is "
+            "not): " + _offenders(half_pad))
+    return problems
+
+
+def sbm_verify_dims(S: Regions, U: Regions, cand: torch.Tensor,
+                    max_pairs: int):
+    """Filter dim-0 candidate pairs on dimensions 1..d-1, recompact.
+
+    Returns ``(pairs, count)``: the surviving candidates in candidate
+    order, −1-padded to ``max_pairs``, and their exact number.
+    """
+    s_idx, u_idx = cand[:, 0].long(), cand[:, 1].long()
+    valid = s_idx >= 0
+    si = s_idx.clamp(min=0)
+    ui = u_idx.clamp(min=0)
+    ok = ((S.lo[si, 1:] < U.hi[ui, 1:])
+          & (U.lo[ui, 1:] < S.hi[si, 1:])).all(dim=-1)
+    ok &= valid
+    return select_rows(cand, ok, max_pairs), int(ok.sum())
+
+
+@functools.lru_cache(maxsize=256)
+def build_plan(spec: MatchSpec, n_sub: int, n_upd: int, d: int,
+               key: Any = None) -> MatchPlan:
+    """Build ``spec`` for a problem shape; memoized on all arguments.
+
+    Returns the same ``MatchPlan`` (with its resolved capacities) for
+    repeated identical requests.  ``key`` is a namespace hook: callers
+    whose memoized capacities must not be shared across otherwise
+    identical requests pass a distinct hashable key.
+    """
+    return MatchPlan(spec, n_sub, n_upd, d)
