@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's SBM main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's matching paths on one NVIDIA card and check them.
 
 Run from the repository root on a host with a CUDA card and ``nvcc``:
 
@@ -26,9 +26,29 @@ or the JAX package.  Phases, each of which must pass:
             ``backend="torch"`` on the card;
 8. times    median of CUDA-event times over warm runs, for ``count()``
             and ``pairs()`` end to end, each kernel alone and each plain
-            version, beside the card's name and power limit.
+            version, beside the card's name and power limit;
+9. bfm      ``count()`` of ``MatchSpec(algo="bfm")`` through K3 on fig. 9
+            (K equal to the SBM count and to the plain per-subscription
+            counts; the K3 tiles bit-equal to their plain version), on
+            Koln (the int64 K past 2^31) and on fig. 9 at d = 2, and
+            ``algo="gbm"``'s grid count on fig. 9;
+10. mask    ``mask()`` and exact ``pairs()`` of the bfm plan at N = 8e4
+            (n*m = 1.6e9): K4's mask bit-equal to the plain mask, the
+            pairs bit-equal to the plain ``bfm_pairs`` and set-equal to
+            SBM's pairs;
+11. routes  fig. 9 through ``emit_route="streaming"`` (K5) and ``"csr"``
+            (the lazy view, windows decoded by K6): the K5 buffer and
+            every csr window equal the resident (K2) buffer, and K5
+            equals its plain version on the same packed table;
+12. koln-csr  Koln through ``csr`` at a fixed cap of INT32_MAX: K exact,
+            and K6 windows at slot 0, above slot 2^30 and at the top
+            equal the plain decode and a lookup over the uncompacted
+            pass-1 tables;
+13. times   K3, K4, K5 and K6 alone and their plain versions.
 
-Then one JSON line with a record per kernel, and as the last line
+Every path runs with the launch counters of its kernels zeroed just
+before and read just after; each kernel must have launched.  Then one
+JSON line with a record per kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line; so does a host without a CUDA device.
 """
@@ -47,8 +67,13 @@ ROOT = Path(__file__).resolve().parent
 
 FIG9 = dict(seed=42, n_total=1_000_000, alpha=100.0)
 FIG9_K = 49_996_544           # the paper's fig. 9 setting, exact K
+FIG9_D2_K = 10_100            # the fig. 9 setting at d = 2
 KOLN_K = 3_678_811_212        # koln_like_workload(0), past 2^31
+MASK = dict(seed=42, n_total=80_000, alpha=100.0)   # n*m = 1.6e9
 TRUNC = 1 << 22
+WINDOW = 1 << 22              # csr windows() chunk at fig. 9
+KOLN_WINDOW = 1 << 20         # each K6 window on Koln
+INT32_MAX = 2 ** 31 - 1
 REPS = 5
 # H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s, and
 # the 32-bit rate outside the tensor cores, used for the integer work here
@@ -251,6 +276,245 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
             "shapes": {"endpoints": T, "emitters": E, "K": k_bin}}
 
 
+def exact_err(a, b) -> int:
+    """Largest absolute difference of two integer or bool tensors."""
+    if a.numel() == 0:
+        return 0
+    return int((a.long() - b.long()).abs().max())
+
+
+def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
+               window: int, koln_window: int, expect_k: dict | None) -> dict:
+    """Phases 9-13 on ``dev``: BFM/GBM, mask, and the streaming and CSR
+    routes.  Returns launches, kernel records and times."""
+    import torch
+    from repro_torch.core import (MatchSpec, brute, build_plan,
+                                  koln_like_workload, paper_workload, sbm)
+    from repro_torch.kernels import bfm, emit, ops, ref
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    # -- 9. BFM count through K3 --------------------------------------------
+    S, U = paper_workload(**fig9, device=dev)
+    n, m = S.n, U.n
+    k_sbm = sbm.sbm_count_binary(S, U)
+    SK, UK = koln_like_workload(0, n_positions=koln_positions, device=dev)
+    S2, U2 = paper_workload(**fig9, d=2, device=dev)
+    k_d2_sbm = build_plan(MatchSpec(algo="sbm", device=dev), S2.n, U2.n,
+                          2).count(S2, U2)
+    bfm.bfm_tile_counts.launches = 0
+    k_bfm = build_plan(MatchSpec(algo="bfm", device=dev), n, m, 1).count(
+        S, U)
+    k_koln = build_plan(MatchSpec(algo="bfm", device=dev), SK.n, UK.n,
+                        1).count(SK, UK)
+    k_d2 = build_plan(MatchSpec(algo="bfm", device=dev), S2.n, U2.n,
+                      2).count(S2, U2)
+    sync()
+    k3_launches = bfm.bfm_tile_counts.launches
+    check(k_bfm == k_sbm, f"bfm K {k_bfm} != sbm K {k_sbm}")
+    k_plain = brute.bfm_count(S, U)
+    check(k_bfm == k_plain, f"bfm K {k_bfm} != plain bfm_count {k_plain}")
+    k_koln_sbm = sbm.sbm_count_binary(SK, UK)
+    check(k_koln == k_koln_sbm, f"koln bfm K {k_koln} != sbm {k_koln_sbm}")
+    check(k_d2 == k_d2_sbm, f"d=2 bfm K {k_d2} != sbm {k_d2_sbm}")
+    if expect_k is not None:
+        check(k_bfm == expect_k["fig9"], f"bfm K {k_bfm}")
+        check(k_koln == expect_k["koln"], f"koln bfm K {k_koln}")
+        check(k_d2 == expect_k["fig9_d2"], f"d=2 bfm K {k_d2}")
+    k_gbm = build_plan(MatchSpec(algo="gbm", device=dev), n, m, 1).count(
+        S, U)
+    check(k_gbm == k_sbm, f"gbm K {k_gbm} != sbm K {k_sbm}")
+    ts = tu = MatchSpec().ts
+    s_lo, s_hi = ops._pad_regions(S.lo, S.hi, ts)
+    u_lo, u_hi = ops._pad_regions(U.lo, U.hi, tu)
+    tiles_args = (s_lo, s_hi, u_lo, u_hi)
+    tiles = bfm.bfm_tile_counts(*tiles_args, ts=ts, tu=tu)
+    tiles_plain = ref.bfm_tile_counts(*tiles_args, ts, tu)
+    k3_err = exact_err(tiles, tiles_plain)
+    check(k3_err == 0, f"K3 != plain (max err {k3_err})")
+    del tiles, tiles_plain
+    print(f"[bfm] fig9 K={k_bfm} (sbm {k_sbm}, plain {k_plain}, gbm "
+          f"{k_gbm}); koln K={k_koln}; d=2 K={k_d2}; K3 tiles bit-equal "
+          f"to plain; K3 launches={k3_launches}")
+    del SK, UK, S2, U2
+
+    # -- 10. mask() and bfm pairs() through K4 -----------------------------
+    SM, UM = paper_workload(**mask_wl, device=dev)
+    bfm.bfm_mask.launches = 0
+    plan_m = build_plan(MatchSpec(algo="bfm", device=dev), SM.n, UM.n, 1)
+    mask = plan_m.mask(SM, UM)
+    res_m, k_m = plan_m.pairs(SM, UM)
+    sync()
+    k4_launches = bfm.bfm_mask.launches
+    mask_plain = ref.bfm_mask(SM.lo, SM.hi, UM.lo, UM.hi)
+    k4_err = exact_err(mask, mask_plain)
+    check(k4_err == 0, f"K4 != plain mask (max err {k4_err})")
+    check(int(mask.sum()) == k_m, "mask popcount != pairs() K")
+    del mask_plain
+    pairs_plain, k_mp = brute.bfm_pairs(SM, UM, k_m)
+    check(k_mp == k_m and torch.equal(res_m.data, pairs_plain),
+          "bfm pairs() != plain bfm_pairs")
+    del pairs_plain
+    res_s, k_s = build_plan(MatchSpec(algo="sbm", device=dev), SM.n, UM.n,
+                            1).pairs(SM, UM)
+    check(k_s == k_m, f"bfm pairs K {k_m} != sbm K {k_s}")
+    keys_b = res_m.data[:, 0].long() * UM.n + res_m.data[:, 1].long()
+    keys_s = torch.sort(res_s.data[:, 0].long() * UM.n
+                        + res_s.data[:, 1].long()).values
+    check(torch.equal(keys_b, keys_s), "bfm pairs != sbm pairs as sets")
+    del keys_b, keys_s, res_s
+    print(f"[mask] n={SM.n} m={UM.n} K={k_m}: K4 mask bit-equal to plain; "
+          f"bfm pairs bit-equal to plain, set-equal to sbm; K4 launches="
+          f"{k4_launches}")
+
+    # -- 11. streaming and csr routes at fig. 9 ----------------------------
+    dense, k_r = build_plan(MatchSpec(emit_route="resident", device=dev),
+                            n, m, 1).pairs(S, U)
+    dense = dense.data
+    emit.twopass_emit_streaming.launches = 0
+    res_st, k_st = build_plan(MatchSpec(emit_route="streaming", device=dev),
+                              n, m, 1).pairs(S, U)
+    sync()
+    k5_launches = emit.twopass_emit_streaming.launches
+    check(ops.last_emit_route() == "streaming", "streaming route not taken")
+    check(k_st == k_r and torch.equal(res_st.data, dense),
+          "streaming buffer != resident buffer")
+    del res_st
+    emit.csr_decode_window.launches = 0
+    view, k_c = build_plan(MatchSpec(emit_route="csr", device=dev), n, m,
+                           1).pairs(S, U)
+    check(isinstance(view, ops.CSRPairs) and k_c == k_r, "csr view / K")
+    dense_h = dense.cpu().numpy()
+    nwin = 0
+    for w0, win in view.windows(chunk=window):
+        check((win == dense_h[w0:w0 + win.shape[0]]).all(),
+              f"csr window at {w0} != resident buffer")
+        nwin += 1
+    del dense_h
+    sync()
+    k6_fig9_launches = emit.csr_decode_window.launches
+    print(f"[routes] fig9 K={k_r}: streaming (K5) buffer == resident (K2); "
+          f"{nwin} csr windows of {window} == resident; csr nbytes="
+          f"{view.nbytes} dense_nbytes={view.dense_nbytes}; K5 launches="
+          f"{k5_launches}, K6 launches={k6_fig9_launches}")
+    perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+        S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], k_r)[:5]
+    bl = emit.lane_pad(MatchSpec().block)
+    tab = emit.pack_emitter_tables(offs, counts, starts, n=n, m=m,
+                                   min_len=emit.stream_window(bl))
+    k5_args = (tab, perm_s, perm_u)
+    k5_out = emit.twopass_emit_streaming(*k5_args, max_pairs=k_r, block=bl)
+    k5_plain = ref.twopass_emit_streaming(*k5_args, max_pairs=k_r)
+    k5_err = exact_err(k5_out, k5_plain)
+    check(k5_err == 0, f"K5 != plain (max err {k5_err})")
+    del k5_out, k5_plain
+    w_mid = max(k_r // 2 - window // 2, 0)
+    w_n = min(window, k_r - w_mid)
+    k6_args = (view.tab, view.perm_s, view.perm_u, w_mid, w_n)
+    k6_err = exact_err(emit.csr_decode_window(*k6_args),
+                       ref.csr_decode_window(*k6_args))
+    check(k6_err == 0, f"K6 != plain (max err {k6_err})")
+
+    # -- 12. Koln through csr at cap INT32_MAX -----------------------------
+    SK, UK = koln_like_workload(0, n_positions=koln_positions, device=dev)
+    emit.csr_decode_window.launches = 0
+    plan_kc = build_plan(MatchSpec(emit_route="csr", capacity="fixed",
+                                   max_pairs=INT32_MAX, device=dev),
+                         SK.n, UK.n, 1)
+    kview, kk = plan_kc.pairs(SK, UK)
+    check(kk == k_koln and kview.count == k_koln,
+          f"koln csr K {kk} != {k_koln}")
+    kt = sbm._twopass_phase1(SK.lo[:, 0], SK.hi[:, 0], UK.lo[:, 0],
+                             UK.hi[:, 0], INT32_MAX)
+    k_perm_s, k_perm_u, k_starts, k_counts, k_offs = kt[:5]
+    del kt
+    koln_windows = (0, (1 << 30) + 12_345, INT32_MAX - koln_window)
+    for w0 in koln_windows:
+        got = kview.decode(w0, w0 + koln_window)
+        plain = ref.csr_decode_window(kview.tab, kview.perm_s, kview.perm_u,
+                                      w0, koln_window)
+        lookup = sbm._twopass_window(k_offs, k_counts, k_starts, k_perm_s,
+                                     k_perm_u, w0, w0 + koln_window)
+        check(torch.equal(got, plain), f"koln K6 window at {w0} != plain")
+        check(torch.equal(got, lookup),
+              f"koln K6 window at {w0} != uncompacted lookup")
+        if expect_k is not None:
+            check(bool((got >= 0).all()), f"pad rows below K at {w0}")
+    sync()
+    k6_launches = k6_fig9_launches + emit.csr_decode_window.launches
+    print(f"[koln-csr] N={SK.n + UK.n} cap={INT32_MAX} K={kk}; K6 windows "
+          f"of {koln_window} at {list(koln_windows)} == plain == "
+          f"uncompacted lookup; csr nbytes={kview.nbytes}")
+    del kview, k_perm_s, k_perm_u, k_starts, k_counts, k_offs, SK, UK
+
+    # -- 13. times ----------------------------------------------------------
+    mask_args = (SM.lo, SM.hi, UM.lo, UM.hi)
+    times = {
+        "k3": time_ms(lambda: bfm.bfm_tile_counts(*tiles_args, ts=ts,
+                                                  tu=tu)),
+        "k3_plain": time_ms(lambda: ref.bfm_tile_counts(*tiles_args, ts,
+                                                        tu)),
+        "k4": time_ms(lambda: bfm.bfm_mask(*mask_args)),
+        "k4_plain": time_ms(lambda: ref.bfm_mask(*mask_args)),
+        "k5": time_ms(lambda: emit.twopass_emit_streaming(
+            *k5_args, max_pairs=k_r, block=bl)),
+        "k5_plain": time_ms(lambda: ref.twopass_emit_streaming(
+            *k5_args, max_pairs=k_r)),
+        "k6": time_ms(lambda: emit.csr_decode_window(*k6_args)),
+        "k6_plain": time_ms(lambda: ref.csr_decode_window(*k6_args)),
+        "bfm_count_e2e": time_ms(lambda: build_plan(
+            MatchSpec(algo="bfm", device=dev), n, m, 1).count(S, U)),
+    }
+    nm, nm_mask = n * m, SM.n * UM.n
+    E, e_pad = n + m, tab.shape[1]
+    # K3: the padded bounds in (8 B per region at d = 1), one int32 per
+    # tile out; two float32 compares per pair
+    n_pad, m_pad = tiles_args[0].shape[0], tiles_args[2].shape[0]
+    k3_bound = bound_ms(8 * (n_pad + m_pad) + 4 * (n_pad // ts)
+                        * (m_pad // tu), 2 * nm)
+    # K4: one byte per pair out, the bounds in; two compares per pair
+    k4_bound = bound_ms(nm_mask + 8 * (SM.n + UM.n), 2 * nm_mask)
+    win = emit.stream_window(bl)
+    # K5: the packed table and the permutations in, 8 B per slot out;
+    # per slot a binary search over the window plus ~12 operations
+    k5_bound = bound_ms(4 * 4 * e_pad + 4 * E + 8 * k_r,
+                        (6 * math.ceil(math.log2(win)) + 12) * k_r)
+    # K6 reads what its window needs: one partner per slot (4 B) and
+    # writes 8 B per slot; its search runs over the whole table
+    k6_bound = bound_ms(12 * w_n,
+                        (6 * math.ceil(math.log2(e_pad)) + 12) * w_n)
+
+    def rec(name, src, replaces, launches, err, key, bound):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": times[key],
+                "plain_ms": times[key + "_plain"], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None, "match": True}
+
+    kernels = [
+        rec("bfm_tile_counts", "src/repro_torch/csrc/bfm.cu",
+            "src/repro/kernels/bfm.py:30", k3_launches, k3_err, "k3",
+            k3_bound),
+        rec("bfm_mask", "src/repro_torch/csrc/bfm.cu",
+            "src/repro/kernels/bfm.py:43", k4_launches, k4_err, "k4",
+            k4_bound),
+        rec("twopass_emit_streaming", "src/repro_torch/csrc/emit_stream.cu",
+            "src/repro/kernels/emit.py:307", k5_launches, k5_err, "k5",
+            k5_bound),
+        rec("csr_decode_window", "src/repro_torch/csrc/csr_decode.cu",
+            "src/repro/kernels/emit.py:423", k6_launches, k6_err, "k6",
+            k6_bound),
+    ]
+    launches = {"bfm_tile_counts": k3_launches, "bfm_mask": k4_launches,
+                "twopass_emit_streaming": k5_launches,
+                "csr_decode_window": k6_launches}
+    return {"launches": launches, "kernels": kernels, "times": times,
+            "shapes": {"fig9_pairs": nm, "mask_pairs": nm_mask, "K": k_r,
+                       "k6_window": w_n}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -274,10 +538,12 @@ def main() -> int:
     libs = _build.build_all()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
 
-    out = run("cuda", FIG9, 541_222, TRUNC,
-              {"fig9": FIG9_K, "koln": KOLN_K})
-    for kname, count in out["launches"].items():
-        check(count > 0, f"kernel {kname} was not launched on the main path")
+    expect = {"fig9": FIG9_K, "koln": KOLN_K, "fig9_d2": FIG9_D2_K}
+    out = run("cuda", FIG9, 541_222, TRUNC, expect)
+    out2 = run_slice2("cuda", FIG9, MASK, 541_222, WINDOW, KOLN_WINDOW,
+                      expect)
+    for kname, count in {**out["launches"], **out2["launches"]}.items():
+        check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
     sh = out["shapes"]
@@ -285,7 +551,10 @@ def main() -> int:
         print(f"[time] {key}: {ms!r} ms (median of {REPS}; endpoints="
               f"{sh['endpoints']} emitters={sh['emitters']} K={sh['K']}) "
               f"on {card}")
-    print(json.dumps({"kernels": out["kernels"]}))
+    sh2 = out2["shapes"]
+    for key, ms in out2["times"].items():
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}; {sh2}) on {card}")
+    print(json.dumps({"kernels": out["kernels"] + out2["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

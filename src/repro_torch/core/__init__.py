@@ -2,29 +2,36 @@
 PyTorch), mirroring ``repro.core`` for what is ported so far:
 
     spec = MatchSpec(algo="sbm",        # sbm | sbm_chunked | sbm_binary
+                                        # | bfm | gbm
                      backend="cuda",    # cuda (hand kernels) | torch
                      capacity="exact",  # exact | fixed | grow
+                     emit_route="auto", # resident | streaming | csr | xla
                      device="cuda")     # or "cpu"
     plan = build_plan(spec, n_sub=S.n, n_upd=U.n, d=S.d)
     k         = plan.count(S, U)        # exact K, int64-safe
-    res, k    = plan.pairs(S, U)        # DensePairs (−1-padded slots)
+    res, k    = plan.pairs(S, U)        # PairsResult (−1-padded slots)
+    mask      = plan.mask(S, U)         # (n, m) bool
 
 Public surface:
     MatchSpec / MatchPlan / build_plan (repro_torch.core.engine)
     PairsResult / DensePairs — the pair-enumeration result contract
     Regions, make_regions, paper_workload, koln_like_workload
+    block_mask / pairs_to_set (repro_torch.core.dd_match)
+    the matchers: sbm, brute (BFM), grid (GBM)
 """
 from .regions import (Regions, make_regions, paper_workload,
                       koln_like_workload, intersect_1d, intersect_dd)
 from .engine import (ALGOS, BACKENDS, CAPACITY_POLICIES, MatchPlan,
                      MatchSpec, build_plan)
 from .pairs import DensePairs, PairsResult
-from . import sbm
+from .dd_match import block_mask, pairs_to_set
+from . import brute, grid, sbm
 
 __all__ = [
     "Regions", "make_regions", "paper_workload", "koln_like_workload",
     "intersect_1d", "intersect_dd",
     "MatchSpec", "MatchPlan", "build_plan",
     "ALGOS", "BACKENDS", "CAPACITY_POLICIES",
-    "PairsResult", "DensePairs", "sbm",
+    "PairsResult", "DensePairs", "block_mask", "pairs_to_set",
+    "sbm", "brute", "grid",
 ]

@@ -1,27 +1,37 @@
 """MatchSpec → MatchPlan engine — one plan/execute API for the port.
 
 The port's counterpart of the JAX package's ``core/engine.py``, for the
-sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``):
+sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``) and the
+paper's two baselines, brute force (``bfm``) and the grid (``gbm``):
 
     spec = MatchSpec(algo="sbm")                 # backend="cuda", device="cuda"
     plan = build_plan(spec, n_sub=S.n, n_upd=U.n, d=S.d)
     k = plan.count(S, U)                         # exact K, int64-safe
-    res, k = plan.pairs(S, U)                    # DensePairs, −1-padded
+    res, k = plan.pairs(S, U)                    # PairsResult, −1-padded
+    mask = plan.mask(S, U)                       # (n, m) bool
 
 Backends
 --------
 ``cuda``   the counterpart of ``pallas``: sorts and searchsorted are
-           library calls, the sweep (``count``) and the pass-2 emit
-           (``pairs``) are the hand-written kernels K1 and K2
+           library calls; the SBM sweep (``count``, K1), the pass-2 emit
+           (``pairs``: K2, K5 or K6 by emit route) and the BFM tile
+           count and mask (K3, K4) are hand-written kernels
            (``kernels/``).  The default.
 ``torch``  the counterpart of ``xla``: the plain tensor code of
-           ``core.sbm`` on any device.
+           ``core.sbm``, ``core.brute`` and ``core.grid`` on any device.
 
 ``device`` names where the plan's buffers live and where its inputs
 must be; it defaults to ``cuda``, and ``cuda`` without a card raises
 ``RuntimeError``.  The CUDA kernel wrappers run their plain versions
 for tensors on the CPU, so a ``device="cpu"`` plan exercises the
 ``cuda`` backend's control flow with the kernels' plain versions.
+
+``pairs()`` returns a ``core.pairs.PairsResult``: ``DensePairs`` on
+every path but the ``csr`` emit route, which returns the lazy
+``kernels.ops.CSRPairs`` view (O(n+m) device memory, windows decoded on
+demand).  ``gbm`` counts on its grid (1-D; d > 1 counts through pairs)
+and enumerates through BFM, as the reference does; ``mask()`` is BFM's
+mask for every algorithm.
 
 Capacity policies (buffer sizing for ``pairs()``)
 -------------------------------------------------
@@ -32,12 +42,13 @@ Capacity policies (buffer sizing for ``pairs()``)
 
 d > 1 enumerates dim-0 candidates with the 1-D path, sized exactly by
 the binary-search per-subscription counts, and filters dimensions
-1..d-1 (``sbm_verify_dims``).  Zero-region inputs give K = 0 and an
-all-−1 buffer without launching a kernel.
+1..d-1 (``sbm_verify_dims``); the candidates must be dense, so ``csr``
+is rejected for d > 1.  Zero-region inputs give K = 0, an all-−1 buffer
+and an all-False mask without launching a kernel.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: the other algorithms, the distributed backend, ``mask()``
-and ``query()``.  PyTorch runs eagerly, so there is no jit cache and no
+Queue 1 item: ``hsbm``, ``itm``, the distributed backend and
+``query()``.  PyTorch runs eagerly, so there is no jit cache and no
 trace counter (the recompile audit is item 12).
 """
 from __future__ import annotations
@@ -49,7 +60,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import sbm
+from . import brute, grid, sbm
 from .pairs import DensePairs, PairsResult, to_numpy
 from .regions import Regions, resolve_device
 
@@ -60,14 +71,11 @@ EMIT_ROUTES = ("auto", "resident", "streaming", "csr", "xla")
 
 # what is not ported yet, and where the ROADMAP queues it
 _NOT_PORTED = {
-    "bfm": "ROADMAP Queue 1 item 5",
-    "gbm": "ROADMAP Queue 1 items 5 and 7",
     "hsbm": "ROADMAP Queue 1 item 7",
     "itm": "ROADMAP Queue 1 item 8",
     "distributed": "ROADMAP Queue 1 item 9",
-    "streaming": "ROADMAP Queue 1 item 6",
-    "csr": "ROADMAP Queue 1 item 6",
 }
+_SBM_FAMILY = ("sbm", "sbm_chunked", "sbm_binary")
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -84,8 +92,8 @@ class MatchSpec:
     """Frozen, hashable description of *how* to match.
 
     ``algo``/``backend``/``capacity`` select the path; ``max_pairs`` is
-    the fixed cap or grow floor, ``p`` the chunked-SBM segment count,
-    ``emit_route`` the pass-2 route, ``device`` where the plan runs.
+    the fixed cap or grow floor; the rest are per-algorithm knobs with
+    the reference's meanings; ``device`` is where the plan runs.
     """
 
     algo: str = "sbm"
@@ -93,8 +101,14 @@ class MatchSpec:
     capacity: str = "exact"
     d: int | None = None           # declared dimensionality (optional)
     max_pairs: int | None = None   # fixed cap / grow floor
+    tile: int = 4096               # BFM torch-backend U-tile
+    ncells: int = 3000             # GBM grid cells
     p: int = 8                     # chunked-SBM segments
+    ts: int = 256                  # BFM kernel K3 tile sizes
+    tu: int = 256
+    block: int = 512               # streaming emit (K5) slots per CTA
     emit_route: str = "auto"       # pass-2 route (kernels.ops)
+    emit_budget: int | None = None  # emit L2 byte budget (None=default)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -114,13 +128,18 @@ class MatchSpec:
                              f"got {self.emit_route}")
         if self.d is not None and self.d < 1:
             raise ValueError(f"d must be >= 1, got {self.d}")
+        if self.emit_route == "csr" and self.d is not None and self.d > 1:
+            raise ValueError(_csr_dense_message(self.d))
         if self.algo in _NOT_PORTED:
             raise _not_ported(f"algo={self.algo!r}", self.algo)
         if self.backend in _NOT_PORTED:
             raise _not_ported(f"backend={self.backend!r}", self.backend)
-        if self.emit_route in _NOT_PORTED:
-            raise _not_ported(f"emit_route={self.emit_route!r}",
-                              self.emit_route)
+
+
+def _csr_dense_message(d: int) -> str:
+    return ("emit_route='csr' returns a lazy CSRPairs view, but d > 1 "
+            "verification gathers from a dense dim-0 candidate buffer; "
+            f"use emit_route='auto'/'streaming'/'xla' for d={d}")
 
 
 class MatchPlan:
@@ -137,6 +156,8 @@ class MatchPlan:
             raise ValueError(
                 f"spec declares d={spec.d} but the plan is built for "
                 f"d={d}")
+        if spec.emit_route == "csr" and d > 1:
+            raise ValueError(_csr_dense_message(d))
         self.spec = spec
         self.device = resolve_device(spec.device)
         self.n_sub = int(n_sub)
@@ -193,12 +214,21 @@ class MatchPlan:
         self._check(S, U)
         if S.n == 0 or U.n == 0:
             return 0
+        if self.spec.algo == "bfm":
+            return self._count_bfm(S, U)
         if self.d == 1:
             return self._count_1d(S, U)
         # d > 1: counting needs pair identity (match-then-verify); the
         # count is exact regardless of the 1-slot output buffer.
         _, k = self._pairs_impl(S, U, out_cap=1)
         return k
+
+    def _count_bfm(self, S: Regions, U: Regions) -> int:
+        spec = self.spec
+        if spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.bfm_count_cuda(S, U, ts=spec.ts, tu=spec.tu)
+        return brute.bfm_count(S, U, tile=spec.tile)
 
     def _count_1d(self, S: Regions, U: Regions) -> int:
         spec = self.spec
@@ -213,15 +243,18 @@ class MatchPlan:
             return sbm._total(sbm._chunked_contribs(*args, p=spec.p))
         if algo == "sbm_binary":
             return sbm._total(sbm.sbm_count_per_sub(S, U))
+        if algo == "gbm":
+            return grid.gbm_count(S, U, ncells=spec.ncells)
         raise AssertionError(algo)
 
     # -- pair enumeration ---------------------------------------------------
     def pairs(self, S: Regions, U: Regions):
-        """Enumerate overlaps: ``(DensePairs, count)``.
+        """Enumerate overlaps: ``(PairsResult, count)``.
 
         The buffer's capacity is resolved by the plan's policy; ``count``
         (also ``result.count``) is the exact K even when a fixed buffer
-        truncates.
+        truncates.  The result is a ``DensePairs``, or the lazy
+        ``CSRPairs`` view on the ``csr`` emit route.
         """
         self._check(S, U)
         spec = self.spec
@@ -239,11 +272,11 @@ class MatchPlan:
             if max(k, 1) != cap:
                 cap = self._resolve_cap(k)
                 pairs, k = self._pairs_impl(S, U, out_cap=cap)
-            return DensePairs(pairs, k), k
+            return _wrap_pairs(pairs, k)
         if spec.capacity == "fixed":
             pairs, k = self._pairs_impl(S, U,
                                         out_cap=self._resolve_cap(0))
-            return DensePairs(pairs, k), k
+            return _wrap_pairs(pairs, k)
         # grow-by-doubling: every path reports the exact K, so at most
         # one re-execution with the doubled (power-of-two) buffer
         cap = self._resolve_cap(0)
@@ -251,10 +284,14 @@ class MatchPlan:
         if k > cap:
             cap = self._resolve_cap(k)
             pairs, k = self._pairs_impl(S, U, out_cap=cap)
-        return DensePairs(pairs, k), k
+        return _wrap_pairs(pairs, k)
 
     def _pairs_impl(self, S: Regions, U: Regions, out_cap: int):
         """(pairs, exact K) with a caller-resolved output capacity."""
+        if self.spec.algo in ("bfm", "gbm"):
+            # GBM degenerates to BFM for enumeration (paper: per-cell
+            # matching IS brute force; pair identity needs no grid)
+            return self._pairs_bfm(S, U, out_cap)
         cand, k = self._pairs_sbm_dim0(
             S, U, out_cap if self.d == 1 else self._cand_bound(S, U))
         if self.d == 1:
@@ -267,13 +304,41 @@ class MatchPlan:
         c = sbm.sbm_count_per_sub(self._project(S), self._project(U))
         return self._resolve_cand_cap(sbm._total(c))
 
+    def _pairs_bfm(self, S: Regions, U: Regions, out_cap: int):
+        if self.spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.bfm_pairs_cuda(S, U, out_cap)
+        return brute.bfm_pairs(S, U, out_cap)
+
     def _pairs_sbm_dim0(self, S: Regions, U: Regions, cap: int):
         spec = self.spec
         S0, U0 = self._project(S), self._project(U)
         if spec.backend == "cuda":
             from ..kernels import ops
-            return ops.twopass_pairs_cuda(S0, U0, cap, route=spec.emit_route)
+            return ops.twopass_pairs_cuda(S0, U0, cap, route=spec.emit_route,
+                                          block=spec.block,
+                                          budget=spec.emit_budget,
+                                          dense_only=self.d > 1)
         return sbm.sbm_pairs(S0, U0, cap)
+
+    def emit_route(self) -> str | None:
+        """The pass-2 route ``pairs()`` takes on the cuda backend.
+
+        The spec's pinned ``emit_route``, or the byte-budget policy
+        (``kernels.ops.choose_emit_route``) applied to this plan's
+        problem shape under ``emit_budget``.  ``None`` for the torch
+        backend and for algorithms that do not reach the two-pass emit.
+        For d > 1 ``auto`` never resolves to ``csr``.
+        """
+        spec = self.spec
+        if spec.backend != "cuda" or spec.algo not in _SBM_FAMILY:
+            return None
+        if spec.emit_route != "auto":
+            return spec.emit_route
+        from ..kernels import ops
+        return ops.choose_emit_route(self.n_sub, self.n_upd,
+                                     budget=spec.emit_budget,
+                                     dense_only=self.d > 1)
 
     def validate_pairs(self, pairs, count: int | None = None) -> None:
         """Host-side sanity check of a ``pairs()`` result buffer.
@@ -308,12 +373,19 @@ class MatchPlan:
             raise ValueError("invalid pair buffer: "
                              + "; ".join(problems) + f"; plan={self!r}")
 
+    # -- masks --------------------------------------------------------------
+    def mask(self, S: Regions, U: Regions) -> torch.Tensor:
+        """(n, m) boolean overlap mask (algorithm-independent)."""
+        self._check(S, U)
+        if S.n == 0 or U.n == 0:
+            return torch.zeros((S.n, U.n), dtype=torch.bool,
+                               device=self.device)
+        if self.spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.bfm_mask_cuda(S, U)
+        return brute.bfm_mask(S, U)
+
     # -- not ported yet -----------------------------------------------------
-    def mask(self, S: Regions, U: Regions):
-        """(n, m) boolean overlap mask — not ported yet (item 5)."""
-        raise NotImplementedError(
-            "MatchPlan.mask() is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 5)")
 
     def query(self, tree, opp: Regions, q_lo, q_hi):
         """Dynamic-service batched query — not ported yet (item 8)."""
@@ -325,6 +397,13 @@ class MatchPlan:
 # ---------------------------------------------------------------------------
 # engine-level helpers
 # ---------------------------------------------------------------------------
+
+def _wrap_pairs(pairs, k: int):
+    """Uniform ``(PairsResult, count)`` return for ``pairs()``."""
+    if isinstance(pairs, PairsResult):
+        return pairs, k
+    return DensePairs(pairs, k), k
+
 
 def select_rows(rows: torch.Tensor, keep: torch.Tensor,
                 cap: int) -> torch.Tensor:

@@ -14,9 +14,9 @@ The port's counterpart of the JAX package's ``core/pairs.py``.
 * ``__array__`` — the full dense host buffer (NumPy protocol);
 * ``nbytes`` — device bytes actually held.
 
-``DensePairs`` wraps an in-memory dense ``(cap, 2)`` int32 tensor.
-The lazy CSR view and the distributed ``ShardedPairs`` are not ported
-yet (ROADMAP Queue 1 items 6 and 9).
+``DensePairs`` wraps an in-memory dense ``(cap, 2)`` int32 tensor; the
+lazy CSR view is ``kernels.ops.CSRPairs``.  The distributed
+``ShardedPairs`` is not ported yet (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 

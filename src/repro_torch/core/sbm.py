@@ -216,15 +216,25 @@ def _twopass_phase1(s_lo, s_hi, u_lo, u_hi, max_pairs: int):
 def _twopass_slots(offs, counts, starts, perm_s, perm_u, *, max_pairs: int):
     """Pass 2 on pass-1 tables: the ``(max_pairs, 2)`` int32 buffer.
 
+    This is kernel K2's plain version (``kernels.ref.twopass_emit``):
+    ``_twopass_window`` over slots ``[0, max_pairs)``.
+    """
+    return _twopass_window(offs, counts, starts, perm_s, perm_u, 0,
+                           max_pairs)
+
+
+def _twopass_window(offs, counts, starts, perm_s, perm_u, start: int,
+                    stop: int):
+    """Slots ``[start, stop)`` of pass 2, from the uncompacted tables.
+
     Slot ``t`` belongs to the last emitter ``e`` with ``offs[e] <= t``;
     its rank is ``j = t − offs[e]``; the partner comes from ``perm_u``
     (class A, ``e < n``) or ``perm_s`` (class B); ranks at or past the
     emitter's count give the −1 pad.  n and m are the permutations'
-    lengths.  This is kernel K2's plain version
-    (``kernels.ref.twopass_emit``).
+    lengths.
     """
     n, m = perm_s.shape[0], perm_u.shape[0]
-    t = torch.arange(max_pairs, dtype=_I32, device=offs.device)
+    t = torch.arange(start, stop, dtype=_I32, device=offs.device)
     e = (torch.searchsorted(offs, t, right=True) - 1).clamp_(max=n + m - 1)
     j = t - offs[e]
     valid = (j >= 0) & (j < counts[e])
@@ -235,6 +245,32 @@ def _twopass_slots(offs, counts, starts, perm_s, perm_u, *, max_pairs: int):
     s_from_b = perm_s[(starts[n + e_b] + j).clamp_(0, n - 1).long()]
     s_idx = torch.where(valid, torch.where(is_a, e_a.to(_I32), s_from_b), -1)
     u_idx = torch.where(valid, torch.where(is_a, u_from_a, e_b.to(_I32)), -1)
+    return torch.stack([s_idx, u_idx], 1).to(_I32)
+
+
+def _packed_window(tab, perm_s, perm_u, start: int, stop: int):
+    """Slots ``[start, stop)`` of pass 2, from the compacted packed table.
+
+    ``tab`` is ``kernels.emit.pack_emitter_tables``' int32 (4, E_pad)
+    table (saturated offsets, counts, start ranks, original emitter ids;
+    pads at offset INT32_MAX, count 0).  The owner of slot ``t`` is the
+    last entry with offset ``<= t``; the rest is ``_twopass_window``'s
+    rule, and the output is bit-identical to it.  This is the plain
+    version of kernels K5 and K6 (``kernels.ref.twopass_emit_streaming``
+    and ``kernels.ref.csr_decode_window``).
+    """
+    n, m = perm_s.shape[0], perm_u.shape[0]
+    t = torch.arange(start, stop, dtype=_I32, device=tab.device)
+    k = (torch.searchsorted(tab[0], t, right=True) - 1).clamp_(min=0)
+    j = t - tab[0][k]
+    e = tab[3][k]
+    valid = (j >= 0) & (j < tab[1][k])
+    r = tab[2][k] + j
+    u_from_a = perm_u[r.clamp(0, m - 1).long()]
+    s_from_b = perm_s[r.clamp(0, n - 1).long()]
+    is_a = e < n
+    s_idx = torch.where(valid, torch.where(is_a, e, s_from_b), -1)
+    u_idx = torch.where(valid, torch.where(is_a, u_from_a, e - n), -1)
     return torch.stack([s_idx, u_idx], 1).to(_I32)
 
 

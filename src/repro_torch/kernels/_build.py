@@ -40,6 +40,22 @@ SIGNATURES = {
         "twopass_emit_launch": ((_P, _P, _P, _P, _P, _I, _I, _L, _P, _P),
                                 _I),
     },
+    "bfm": {
+        "bfm_strerror": ((_I,), ctypes.c_char_p),
+        "bfm_tile_counts_smem": ((_I, _I, _I), _L),
+        "bfm_tile_counts_launch": ((_P, _P, _P, _P, _L, _L, _I, _I, _I, _P,
+                                    _P), _I),
+        "bfm_mask_launch": ((_P, _P, _P, _P, _L, _L, _I, _P, _P), _I),
+    },
+    "emit_stream": {
+        "emit_stream_strerror": ((_I,), ctypes.c_char_p),
+        "emit_stream_launch": ((_P, _L, _P, _P, _P, _I, _I, _L, _I, _I, _P,
+                                _P), _I),
+    },
+    "csr_decode": {
+        "csr_decode_strerror": ((_I,), ctypes.c_char_p),
+        "csr_decode_launch": ((_P, _L, _P, _P, _I, _I, _L, _L, _P, _P), _I),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -132,6 +148,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all((name,))[name]
+
+
+def launch(device, fn, *args) -> int:
+    """Call the launch function ``fn(*args, stream)`` with ``device``
+    current and its current stream; returns the CUDA error code."""
+    import torch
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:

@@ -1,0 +1,102 @@
+"""K3 and K4 — brute-force tile kernels in CUDA (``csrc/bfm.cu``).
+
+K3 ``bfm_tile_counts`` replaces the JAX package's Pallas kernel
+``kernels/bfm.py:_count_kernel``: the int32 overlap count of every
+(ts × tu) tile, for inputs padded to tile multiples with non-matching
+±inf sentinel regions (``ops._pad_regions``).  One CTA per tile stages
+its S and U slices in shared memory and reduces its pair tests to one
+int32.  Bound on the card: operations, n·m·2d float32 compares (≈7.5 ms
+at the paper's fig. 9 size, d = 1, against the 67 TFLOP/s CUDA-core
+rate).
+
+K4 ``bfm_mask`` replaces ``_mask_kernel``: the full (n, m) bool mask.
+Unlike the TPU kernel it takes any n and m and masks the ragged edge
+itself, so the mask comes out contiguous with nothing padded or
+trimmed.  Each thread writes several adjacent bytes of a row as one
+aligned store.  Bound on the card: bytes, n·m written.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+the plain version (``ref.bfm_tile_counts`` / ``ref.bfm_mask``) for CPU
+tensors; there is no fallback between them.  ``.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, ref
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _check_bounds(s_lo, s_hi, u_lo, u_hi) -> None:
+    for name, x in (("s_lo", s_lo), ("s_hi", s_hi), ("u_lo", u_lo),
+                    ("u_hi", u_hi)):
+        if (x.dtype != torch.float32 or x.ndim != 2
+                or not x.is_contiguous() or x.device != s_lo.device):
+            raise ValueError(
+                f"{name} must be a contiguous float32 (N, d) tensor on "
+                f"{s_lo.device}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    if s_lo.shape != s_hi.shape or u_lo.shape != u_hi.shape:
+        raise ValueError("lo and hi bounds must match in shape")
+    if s_lo.shape[1] != u_lo.shape[1] or s_lo.shape[1] < 1:
+        raise ValueError(f"S and U must share d >= 1, got "
+                         f"{s_lo.shape[1]} and {u_lo.shape[1]}")
+
+
+def bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, *, ts: int = 256,
+                    tu: int = 256) -> torch.Tensor:
+    """Per-tile overlap counts int32 (n/ts, m/tu); n%ts == m%tu == 0."""
+    n, m = s_lo.shape[0], u_lo.shape[0]
+    if ts < 1 or tu < 1 or n % ts or m % tu:
+        raise ValueError(f"bfm_tile_counts needs n % ts == m % tu == 0, got "
+                         f"n={n} ts={ts} m={m} tu={tu}")
+    if s_lo.device.type == "cpu":
+        return ref.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, ts, tu)
+    if s_lo.device.type != "cuda":
+        raise ValueError(f"bfm_tile_counts: unsupported device {s_lo.device}")
+    _check_bounds(s_lo, s_hi, u_lo, u_hi)
+    if ts * tu > _INT32_MAX:
+        raise ValueError(f"a tile count must fit int32; ts*tu = {ts * tu}")
+    out = torch.empty((n // ts, m // tu), dtype=torch.int32,
+                      device=s_lo.device)
+    if n == 0 or m == 0:
+        return out
+    lib = _build.load("bfm")
+    d = s_lo.shape[1]
+    if lib.bfm_tile_counts_smem(ts, tu, d) == 0:
+        raise ValueError(f"tiles ts={ts}, tu={tu} at d={d} need more shared "
+                         "memory than a CTA has (227 KB)")
+    rc = _build.launch(
+        s_lo.device, lib.bfm_tile_counts_launch, s_lo.data_ptr(),
+        s_hi.data_ptr(), u_lo.data_ptr(), u_hi.data_ptr(), n, m, d, ts, tu,
+        out.data_ptr())
+    _build.check(lib, "bfm", rc)
+    bfm_tile_counts.launches += 1
+    return out
+
+
+def bfm_mask(s_lo, s_hi, u_lo, u_hi) -> torch.Tensor:
+    """Full (n, m) bool overlap mask, any n and m."""
+    if s_lo.device.type == "cpu":
+        return ref.bfm_mask(s_lo, s_hi, u_lo, u_hi)
+    if s_lo.device.type != "cuda":
+        raise ValueError(f"bfm_mask: unsupported device {s_lo.device}")
+    _check_bounds(s_lo, s_hi, u_lo, u_hi)
+    n, m = s_lo.shape[0], u_lo.shape[0]
+    out = torch.empty((n, m), dtype=torch.bool, device=s_lo.device)
+    if n == 0 or m == 0:
+        return out
+    lib = _build.load("bfm")
+    rc = _build.launch(
+        s_lo.device, lib.bfm_mask_launch, s_lo.data_ptr(), s_hi.data_ptr(),
+        u_lo.data_ptr(), u_hi.data_ptr(), n, m, s_lo.shape[1],
+        out.data_ptr())
+    _build.check(lib, "bfm", rc)
+    bfm_mask.launches += 1
+    return out
+
+
+bfm_tile_counts.launches = 0
+bfm_mask.launches = 0

@@ -53,11 +53,9 @@ def sbm_sweep(is_lo: torch.Tensor, is_upd: torch.Tensor) -> torch.Tensor:
     tile = lib.sbm_sweep_tile()
     scratch = torch.empty(2 * (-(-T // tile)), dtype=torch.int32,
                           device=is_lo.device)
-    with torch.cuda.device(is_lo.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sbm_sweep_launch(is_lo.data_ptr(), is_upd.data_ptr(),
-                                  out.data_ptr(), scratch.data_ptr(), T,
-                                  stream)
+    rc = _build.launch(is_lo.device, lib.sbm_sweep_launch, is_lo.data_ptr(),
+                       is_upd.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                       T)
     _build.check(lib, "sbm_sweep", rc)
     sbm_sweep.launches += 1
     return out

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-K1 (``csrc/sbm_sweep.cu``) and K2 (``csrc/emit.cu``) have no CPU mode,
-so these tests carry the ``cuda`` marker and skip on a host without a
-card.  The file imports neither JAX nor the JAX package, so it also runs
+K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 and K4
+(``csrc/bfm.cu``), K5 (``csrc/emit_stream.cu``) and K6
+(``csrc/csr_decode.cu``) have no CPU mode, so these tests carry the
+``cuda`` marker and skip on a host without a card.  The file imports neither JAX nor the JAX package, so it also runs
 on the card host, which has no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,7 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import MatchSpec, build_plan, paper_workload  # noqa: E402
 from repro_torch.core import sbm  # noqa: E402
-from repro_torch.kernels import emit, ref  # noqa: E402
+from repro_torch.kernels import bfm, emit, ops, ref  # noqa: E402
 from repro_torch.kernels import sbm_sweep as sweep  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +107,151 @@ def test_kernel_wrappers_reject_bad_tensors(card):
     perm = torch.zeros(2, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="offs"):
         emit.twopass_emit(t[1], t[1], t[2], perm, perm, max_pairs=3)
+
+
+def _boxes(card, n, m, d, seed):
+    """Integer-grid boxes (exact ties) with every fifth S region empty."""
+    rng = np.random.default_rng(seed)
+
+    def side(k):
+        lo = rng.integers(0, 60, (k, d)).astype(np.float32)
+        hi = lo + rng.integers(1, 15, (k, d)).astype(np.float32)
+        return lo, hi
+
+    s_lo, s_hi = side(n)
+    s_hi[::5] = s_lo[::5]
+    u_lo, u_hi = side(m)
+    return (convert.regions_from_numpy(s_lo, s_hi, card),
+            convert.regions_from_numpy(u_lo, u_hi, card))
+
+
+# m covers every store width of K4 (16, 8, 4, 2 and 1 bytes)
+# (2048, 4096, 2048, 2048) needs more than 48 KB of shared memory per
+# K3 CTA at d >= 2, the opt-in launch path
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n,m,ts,tu", [(256, 1024, 256, 256),
+                                       (300, 517, 64, 128),
+                                       (1000, 1000, 256, 256),
+                                       (5, 1004, 8, 16), (777, 998, 32, 512),
+                                       (2048, 4096, 2048, 2048)])
+def test_bfm_kernels_match_plain(card, n, m, ts, tu, d):
+    S, U = _boxes(card, n, m, d, seed=n + m + d)
+    s_lo, s_hi = ops._pad_regions(S.lo, S.hi, ts)
+    u_lo, u_hi = ops._pad_regions(U.lo, U.hi, tu)
+    before = (bfm.bfm_tile_counts.launches, bfm.bfm_mask.launches)
+    tiles = bfm.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, ts=ts, tu=tu)
+    mask = bfm.bfm_mask(S.lo, S.hi, U.lo, U.hi)
+    torch.cuda.synchronize()
+    assert (bfm.bfm_tile_counts.launches, bfm.bfm_mask.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(tiles, ref.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi,
+                                                  ts, tu))
+    assert torch.equal(mask, ref.bfm_mask(S.lo, S.hi, U.lo, U.hi))
+    assert int(tiles.sum(dtype=torch.int64)) == int(mask.sum())
+
+
+@pytest.mark.parametrize("case", ["paper_a50", "paper_a0.5", "ties"])
+def test_stream_and_csr_kernels_match_plain(card, case):
+    if case == "ties":
+        S, U = _ties(card)
+    else:
+        S, U = paper_workload(4, 60_000, float(case[7:]), device=card)
+    k = sbm.sbm_count_binary(S, U)
+    rng = np.random.default_rng(5)
+    for max_pairs in sorted({1, max(k // 3, 1), k, k + 100}):
+        perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+            S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], max_pairs)[:5]
+        dense = ref.twopass_emit(offs, counts, starts, perm_s, perm_u,
+                                 max_pairs=max_pairs)
+        tab = emit.pack_emitter_tables(offs, counts, starts, n=S.n, m=U.n,
+                                       min_len=emit.stream_window(4096))
+        for block in (128, 512, 2048, 4096):   # 4096: > 48 KB of window
+            before = emit.twopass_emit_streaming.launches
+            got = emit.twopass_emit_streaming(tab, perm_s, perm_u,
+                                              max_pairs=max_pairs,
+                                              block=block)
+            torch.cuda.synchronize()
+            assert emit.twopass_emit_streaming.launches == before + 1
+            assert torch.equal(got, dense), block
+        for w0 in {0, max_pairs - 1, *rng.integers(0, max_pairs, 4).tolist()}:
+            nsl = min(max_pairs - w0, int(rng.integers(1, 70_000)))
+            before = emit.csr_decode_window.launches
+            got = emit.csr_decode_window(tab, perm_s, perm_u, w0, nsl)
+            torch.cuda.synchronize()
+            assert emit.csr_decode_window.launches == before + 1
+            assert torch.equal(got, dense[w0:w0 + nsl])
+            assert torch.equal(got, ref.csr_decode_window(tab, perm_s, perm_u,
+                                                          w0, nsl))
+
+
+def test_mask_kernel_past_65535_row_tiles(card):
+    # 4.3e6 rows are 67,188 row tiles of 64: the grid's y extent stops at
+    # 65535, so the kernel's grid-stride loop must cover the rest
+    S, U = _boxes(card, 4_300_000, 3, 1, seed=8)
+    mask = bfm.bfm_mask(S.lo, S.hi, U.lo, U.hi)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, ref.bfm_mask(S.lo, S.hi, U.lo, U.hi))
+
+
+def test_csr_kernel_above_2_30(card):
+    n = m = 40_000
+    rng = np.random.default_rng(12)
+    s_lo = rng.uniform(0, 1, n).astype(np.float32)
+    u_lo = rng.uniform(1, 2, m).astype(np.float32)
+    S = convert.regions_from_numpy(s_lo, s_lo + 3, card)
+    U = convert.regions_from_numpy(u_lo, u_lo + 3, card)
+    K = n * m
+    view, k = ops.twopass_pairs_csr(S, U, K)
+    assert k == K
+    perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+        S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], K)[:5]
+    last = int(offs[n - 1])
+    for w0, stop in ((last - 1000, last + 1000), (K - 3000, K)):
+        got = view.decode(w0, stop)
+        torch.cuda.synchronize()
+        assert torch.equal(got, sbm._twopass_window(
+            offs, counts, starts, perm_s, perm_u, w0, stop))
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_bfm_gbm_and_routes_equal_torch_backend(card, d):
+    S, U = paper_workload(9, 20_000, 200.0, d=d, device=card)
+    want = build_plan(MatchSpec(backend="torch"), S.n, U.n, d)
+    wres, wk = want.pairs(S, U)
+    for algo in ("bfm", "gbm"):
+        plan = build_plan(MatchSpec(algo=algo), S.n, U.n, d)
+        res, k = plan.pairs(S, U)
+        assert plan.count(S, U) == k
+        bplan = build_plan(MatchSpec(algo="bfm", backend="torch"), S.n,
+                           U.n, d)
+        bres, bk = bplan.pairs(S, U)
+        assert k == bk == wk and torch.equal(res.data, bres.data)
+        assert torch.equal(plan.mask(S, U), bplan.mask(S, U))
+    for route in ("resident", "streaming", "csr", "xla"):
+        if route == "csr" and d > 1:
+            continue
+        plan = build_plan(MatchSpec(emit_route=route), S.n, U.n, d)
+        res, k = plan.pairs(S, U)
+        assert k == wk and ops.last_emit_route() == route
+        assert torch.equal(res.to_dense(), wres.data), route
+
+
+def test_new_kernel_wrappers_reject_bad_tensors(card):
+    f64 = torch.zeros((8, 1), dtype=torch.float64, device=card)
+    f32 = torch.zeros((8, 1), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        bfm.bfm_tile_counts(f64, f64, f32, f32, ts=8, tu=8)
+    with pytest.raises(ValueError, match="n % ts"):
+        bfm.bfm_tile_counts(f32, f32, f32, f32, ts=3, tu=8)
+    with pytest.raises(ValueError, match="float32"):
+        bfm.bfm_mask(f32, f32, f64, f64)
+    with pytest.raises(ValueError, match="share d"):
+        bfm.bfm_mask(f32, f32, f32.repeat(1, 2), f32.repeat(1, 2))
+    perm = torch.zeros(3, dtype=torch.int32, device=card)
+    tab = torch.zeros((4, 128), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="narrower"):
+        emit.twopass_emit_streaming(tab, perm, perm, max_pairs=5)
+    with pytest.raises(ValueError, match="packed"):
+        emit.csr_decode_window(tab[:3], perm, perm, 0, 4)
+    with pytest.raises(ValueError, match="int32"):
+        emit.csr_decode_window(tab.long(), perm, perm, 0, 4)

@@ -133,8 +133,9 @@ def test_ops_empty_and_unported_routes():
     assert launches == (sweep.sbm_sweep.launches,
                         emit.twopass_emit.launches)
     for route in ("streaming", "csr"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ops.twopass_pairs_cuda(tS, tS, 4, route=route)
+        out, k = ops.twopass_pairs_cuda(tE, tS, 3, route=route)
+        assert k == 0 and bool((out == -1).all())
+        assert ops.last_emit_route() is None
     with pytest.raises(ValueError, match="route must be one of"):
         ops.twopass_pairs_cuda(tS, tS, 4, route="bogus")
 
