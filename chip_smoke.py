@@ -44,7 +44,22 @@ or the JAX package.  Phases, each of which must pass:
             and K6 windows at slot 0, above slot 2^30 and at the top
             equal the plain decode and a lookup over the uncompacted
             pass-1 tables;
-13. times   K3, K4, K5 and K6 alone and their plain versions.
+13. times   K3, K4, K5 and K6 alone and their plain versions;
+14. planner the sparse-attention planner's ``block_windows`` at
+            Zamba2-2.7B's plan (S = 32,768, 128-token blocks, window
+            4096, one sink block) on the card, through K1 and K2: the
+            windows equal the ``device="cpu"`` run bit for bit and the
+            arithmetic hull; the same at ``long_500k``'s S = 524,288;
+15. attn    K7 on the phase-14 windows at Zamba2's attention width in
+            bfloat16 (B = 1, H = 32, dh = 80; this run's main path is
+            planner → engine → K7), against its plain version on the
+            card; then float32 at H = 4, the JAX auditor's shape (BH 8,
+            S 2048, dh 128, sink 256), a ragged S and sink, and
+            B·H·S·dh past 2^31 (BH 1024, window 128, the last slice
+            checked);
+16. times   K7 alone, its plain version, ``block_windows`` end to end
+            and the one-call yardstick (SDPA with the token mask, the
+            efficient backend) at the phase-15 Zamba2 shape.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -75,10 +90,24 @@ WINDOW = 1 << 22              # csr windows() chunk at fig. 9
 KOLN_WINDOW = 1 << 20         # each K6 window on Koln
 INT32_MAX = 2 ** 31 - 1
 REPS = 5
-# H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s, and
-# the 32-bit rate outside the tensor cores, used for the integer work here
+# Zamba2-2.7B's shared attention block (src/repro/configs/zamba2_2_7b.py)
+# at prefill_32k's sequence, and long_500k's sequence; the JAX auditor's
+# sequence (src/repro/analysis/matrix.py)
+ZAMBA2 = dict(seq=32_768, heads=32, dh=80, block=128, window=4096, sink=1,
+              long_seq=524_288, f32_heads=4, big_bh=1024, aud_seq=2048)
+# K7 against its plain version: both read the same inputs and compute in
+# float32, so in bfloat16 they differ by one output rounding at most,
+# <= 2^-7·|want| (one bf16 ulp), plus float32 reassociation far below
+# 1e-4; the relative RMS of the difference stays under 2^-8 unless most
+# elements round apart.  In float32 the JAX test's 2e-5 holds.
+BF16_TOL = dict(atol=1e-4, rtol=2 ** -7, rms=2 ** -8)
+F32_TOL = dict(atol=2e-5, rtol=2e-5, rms=2e-5)
+# H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s, the 32-bit
+# rate outside the tensor cores (used for the integer work here), and
+# the dense bf16 tensor-core rate (used for attention)
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 
 class SmokeError(RuntimeError):
@@ -115,11 +144,13 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = OPS32_PER_S) -> tuple[float, str]:
     """Least time for the work: max of bytes over HBM rate and operations
-    over the 32-bit rate, in ms, and which of the two bounds it."""
+    over ``ops_per_s`` (the 32-bit rate unless named), in ms, and which
+    of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS32_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -515,6 +546,247 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
                        "k6_window": w_n}}
 
 
+def check_close(got, want, what: str, *, atol: float, rtol: float,
+                rms: float) -> tuple[float, float]:
+    """``|got - want| <= atol + rtol·|want|`` everywhere and
+    ``||got - want|| <= rms·||want||``; the max abs err and the relative
+    RMS error."""
+    import torch
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    diff = (got - want).abs()
+    bad = diff > atol + rtol * want.abs()
+    err = float(diff.max())
+    rel = float(diff.norm()) / max(float(want.norm()), 1e-30)
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements off by "
+          f"more than {atol} + {rtol}·|want| (max abs err {err})")
+    check(rel <= rms, f"{what}: relative RMS error {rel} > {rms}")
+    return err, rel
+
+
+def allowed_pairs(starts, ends, *, sq: int, skv: int, bq: int, bkv: int,
+                  sink_end: int) -> int:
+    """(query, key) pairs K7 needs: keys of a walked block with
+    ``kv <= q``, ``kv < end`` and ``kv < skv``, summed over the queries."""
+    import torch
+    from repro_torch.kernels import ref
+    first, count = ref.window_blocks(starts, ends, bkv=bkv,
+                                     sink_end=sink_end)
+    nq = sq // bq
+    top = torch.minimum(                     # allowed keys lie below top
+        torch.arange(1, sq + 1, device=starts.device).view(nq, bq),
+        torch.clamp(ends.long(), max=skv)[:, None])
+    sink = torch.clamp(top, min=0, max=sink_end // bkv * bkv)
+    lo, hi = first * bkv, (first + count) * bkv
+    win = torch.clamp(torch.minimum(top, hi[:, None]) - lo[:, None], min=0)
+    return int((sink + win).sum())
+
+
+def run_slice3(dev: str, z: dict) -> dict:
+    """Phases 14-16 on ``dev``: the sparse-attention planner through K1
+    and K2, then K7.  Returns launches, the K7 record and times.
+
+    ``z`` holds the shapes (``ZAMBA2`` on the card).
+    """
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import emit, ref
+    from repro_torch.kernels import sbm_sweep as sweep
+    from repro_torch.kernels import sparse_attn as tsa
+    from repro_torch.sparse import BlockPlan, block_windows
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def hull_ok(plan, starts, ends) -> bool:
+        end = np.minimum((np.arange(plan.nq) + 1) * plan.block_q,
+                         plan.seq_len)
+        hs = np.maximum(0, end - plan.window) // plan.block_kv * plan.block_kv
+        return (np.array_equal(ends.cpu().numpy(), end)
+                and np.array_equal(starts.cpu().numpy(), hs))
+
+    S, H, dh, blk = z["seq"], z["heads"], z["dh"], z["block"]
+    plan = BlockPlan(S, blk, blk, z["window"], z["sink"])
+    sink_end = plan.sink_end
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    q, k, v = (randn(1, S, H, dh, dtype=torch.bfloat16) for _ in range(3))
+    sync()
+
+    # -- 14/15. the main path, launch counters zeroed just before ---------
+    sweep.sbm_sweep.launches = 0
+    emit.twopass_emit.launches = 0
+    tsa.sparse_attn_bh.launches = 0
+    starts, ends = block_windows(plan, device=dev)
+    sync()
+    launches = {"sbm_sweep": sweep.sbm_sweep.launches,
+                "twopass_emit": emit.twopass_emit.launches}
+    out = tsa.sparse_attn(q, k, v, starts, ends, bq=blk, bkv=blk,
+                          sink_end=sink_end)
+    sync()
+    launches["sparse_attn"] = tsa.sparse_attn_bh.launches
+    print(f"[main] block_windows (K1 {launches['sbm_sweep']}, K2 "
+          f"{launches['twopass_emit']} launches) then sparse_attn (K7 "
+          f"{launches['sparse_attn']}) at B=1 S={S} H={H} dh={dh}")
+    check(launches["sbm_sweep"] > 0 and launches["twopass_emit"] > 0,
+          f"block_windows did not run K1 and K2: {launches}")
+
+    # -- 14. planner checks ----------------------------------------------
+    cs, ce = block_windows(plan, device="cpu")
+    check(starts.dtype == ends.dtype == torch.int32, "windows not int32")
+    check(torch.equal(starts.cpu(), cs) and torch.equal(ends.cpu(), ce),
+          "planner windows on the card != the CPU run")
+    check(hull_ok(plan, starts, ends), "windows != the arithmetic hull")
+    print(f"[planner] S={S} nq={plan.nq}: windows == cpu run == hull "
+          f"[{int(starts[0])}, {int(ends[0])}) ... [{int(starts[-1])}, "
+          f"{int(ends[-1])})")
+    long_plan = BlockPlan(z["long_seq"], blk, blk, z["window"], z["sink"])
+    sweep.sbm_sweep.launches = emit.twopass_emit.launches = 0
+    ls, le = block_windows(long_plan, device=dev)
+    sync()
+    long_launches = (sweep.sbm_sweep.launches, emit.twopass_emit.launches)
+    check(min(long_launches) > 0, f"long plan K1/K2 launches {long_launches}")
+    lcs, lce = block_windows(long_plan, device="cpu")
+    check(torch.equal(ls.cpu(), lcs) and torch.equal(le.cpu(), lce),
+          "long plan windows on the card != the CPU run")
+    check(hull_ok(long_plan, ls, le), "long plan windows != the hull")
+    print(f"[planner] long S={long_plan.seq_len} nq={long_plan.nq}: "
+          f"windows == cpu run == hull; K1/K2 launches {long_launches}")
+    del ls, le, lcs, lce
+
+    # -- 15. K7 against its plain version ---------------------------------
+    def fold(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]) \
+            .contiguous()
+
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    del q, k, v
+    plain = ref.sparse_attn_bh(qf, kf, vf, starts, ends, bq=blk, bkv=blk,
+                               sink_end=sink_end)
+    check(tuple(out.shape) == (1, S, H, dh) and out.dtype == torch.bfloat16,
+          f"K7 output {tuple(out.shape)} {out.dtype}")
+    k7_err, k7_rms = check_close(fold(out), plain, "K7 bf16 Zamba2",
+                                 **BF16_TOL)
+    del plain
+    print(f"[attn] bf16 B=1 S={S} H={H} dh={dh}: K7 == plain within "
+          f"{BF16_TOL} (max abs err {k7_err}, relative RMS {k7_rms})")
+
+    H4 = z["f32_heads"]
+    q4, k4, v4 = (randn(1, S, H4, dh, dtype=torch.float32)
+                  for _ in range(3))
+    o4 = tsa.sparse_attn(q4, k4, v4, starts, ends, bq=blk, bkv=blk,
+                         sink_end=sink_end)
+    p4 = ref.sparse_attn_bh(fold(q4), fold(k4), fold(v4), starts, ends,
+                            bq=blk, bkv=blk, sink_end=sink_end)
+    f32_err, f32_rms = check_close(fold(o4), p4, "K7 float32", **F32_TOL)
+    del q4, k4, v4, o4, p4
+    print(f"[attn] float32 H={H4}: K7 == plain within {F32_TOL} (max abs "
+          f"err {f32_err}, relative RMS {f32_rms})")
+
+    def one_case(name, plan_c, BH, dh_c, dtype, sink_c, tol):
+        sc, ec = block_windows(plan_c, device=dev)
+        qc, kc, vc = (randn(BH, plan_c.seq_len, dh_c, dtype=dtype)
+                      for _ in range(3))
+        got = tsa.sparse_attn_bh(qc, kc, vc, sc, ec, bq=plan_c.block_q,
+                                 bkv=plan_c.block_kv, sink_end=sink_c)
+        want = ref.sparse_attn_bh(qc, kc, vc, sc, ec, bq=plan_c.block_q,
+                                  bkv=plan_c.block_kv, sink_end=sink_c)
+        err, rel = check_close(got, want, f"K7 {name}", **tol)
+        print(f"[attn] {name}: BH={BH} S={plan_c.seq_len} dh={dh_c} "
+              f"{str(dtype)[6:]} sink_end={sink_c}: K7 == plain within "
+              f"{tol} (max abs err {err}, relative RMS {rel})")
+
+    # the JAX auditor's entry (src/repro/analysis/matrix.py): BH 8,
+    # S 2048, dh 128, sink 256; then S % bkv != 0 and sink_end % bkv != 0
+    one_case("auditor", BlockPlan(z["aud_seq"], 128, 128, 1024, 2), 8, 128,
+             torch.float32, 256, F32_TOL)
+    one_case("ragged", BlockPlan(2000, 80, 64, 300, 1), 4, dh,
+             torch.bfloat16, 100, BF16_TOL)
+
+    # B·H·S·dh past 2^31 at a small cost: a 128-token window, no sink
+    BHb = z["big_bh"]
+    big_plan = BlockPlan(S, blk, blk, blk, 0)
+    sb, eb = block_windows(big_plan, device=dev)
+    qb, kb, vb = (randn(BHb, S, dh, dtype=torch.bfloat16) for _ in range(3))
+    ob = tsa.sparse_attn_bh(qb, kb, vb, sb, eb, bq=blk, bkv=blk, sink_end=0)
+    big_err = 0.0
+    for sl in (slice(0, 1), slice(BHb - 1, BHb)):
+        want = ref.sparse_attn_bh(qb[sl], kb[sl], vb[sl], sb, eb, bq=blk,
+                                  bkv=blk, sink_end=0)
+        big_err = max(big_err, check_close(ob[sl], want, "K7 past 2^31",
+                                           **BF16_TOL)[0])
+    print(f"[attn] BH={BHb} S={S} dh={dh} (B·H·S·dh = {qb.numel()}, 2^31 = "
+          f"{2 ** 31}): first and last slices == plain within {BF16_TOL} "
+          f"(max abs err {big_err})")
+    del qb, kb, vb, ob
+
+    # -- 16. times ----------------------------------------------------------
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(S, device=dev)[None, :]
+    qblk = torch.arange(S, device=dev) // blk
+    s64, e64 = starts.long()[qblk][:, None], ends.long()[qblk][:, None]
+    mask = (kp <= qp) & (((kp >= s64) & (kp < e64)) | (kp < sink_end))
+    del qp, kp, qblk, s64, e64
+    q4d, k4d, v4d = (x.view(1, H, S, dh) for x in (qf, kf, vf))
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4d, k4d, v4d,
+                                                  attn_mask=mask)
+
+    # SDPA rounds the softmax weights to bf16 before P·V: per element up
+    # to 2^-8·max|v|, on top of two output roundings of 2^-7·|want| each;
+    # three roundings of <= 2^-8 relative give a relative RMS near 2^-8,
+    # held to 2^-7
+    sdpa_tol = dict(atol=2 ** -8 * float(vf.abs().max()), rtol=2 ** -6,
+                    rms=2 ** -7)
+    lib_err, lib_rms = check_close(sdpa()[0], fold(out),
+                                   "SDPA yardstick vs K7", **sdpa_tol)
+    print(f"[times] SDPA with the token mask computes K7's function here "
+          f"within {sdpa_tol} (max abs err {lib_err}, relative RMS "
+          f"{lib_rms})")
+    attn = dict(bq=blk, bkv=blk, sink_end=sink_end)
+    times = {
+        "k7": time_ms(lambda: tsa.sparse_attn_bh(qf, kf, vf, starts, ends,
+                                                 **attn)),
+        "k7_plain": time_ms(lambda: ref.sparse_attn_bh(qf, kf, vf, starts,
+                                                       ends, **attn)),
+        "k7_library_sdpa": time_ms(sdpa),
+        "block_windows_e2e": time_ms(lambda: block_windows(plan,
+                                                           device=dev)),
+    }
+    del mask
+
+    # K7: 4·dh FLOP per allowed (query, key) pair and head, counted from
+    # this run's windows; q, k, v read and out written once
+    pairs = allowed_pairs(starts, ends, sq=S, skv=S, bq=blk, bkv=blk,
+                          sink_end=sink_end)
+    flops = 4 * dh * pairs * H
+    nbytes = 4 * qf.numel() * qf.element_size() + 8 * plan.nq
+    bound = bound_ms(nbytes, flops, BF16_TC_FLOP_PER_S)
+    kernels = [{"name": "sparse_attn", "route": "cuda",
+                "source": "src/repro_torch/csrc/sparse_attn.cu",
+                "replaces": "src/repro/kernels/sparse_attn.py:31",
+                "launches": launches["sparse_attn"], "max_abs_err": k7_err,
+                "ms": times["k7"], "plain_ms": times["k7_plain"],
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": times["k7_library_sdpa"], "match": True}]
+    return {"launches": launches, "kernels": kernels, "times": times,
+            "shapes": {"S": S, "H": H, "dh": dh, "allowed_pairs": pairs,
+                       "flop": flops, "bytes": nbytes,
+                       "k7_rel_rms": k7_rms, "f32_err": f32_err,
+                       "big_err": big_err, "sdpa_vs_k7_err": lib_err,
+                       "sdpa_vs_k7_rel_rms": lib_rms}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -542,7 +814,9 @@ def main() -> int:
     out = run("cuda", FIG9, 541_222, TRUNC, expect)
     out2 = run_slice2("cuda", FIG9, MASK, 541_222, WINDOW, KOLN_WINDOW,
                       expect)
-    for kname, count in {**out["launches"], **out2["launches"]}.items():
+    out3 = run_slice3("cuda", ZAMBA2)
+    for kname, count in {**out["launches"], **out2["launches"],
+                         **out3["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
@@ -554,7 +828,11 @@ def main() -> int:
     sh2 = out2["shapes"]
     for key, ms in out2["times"].items():
         print(f"[time] {key}: {ms!r} ms (median of {REPS}; {sh2}) on {card}")
-    print(json.dumps({"kernels": out["kernels"] + out2["kernels"]}))
+    sh3 = out3["shapes"]
+    for key, ms in out3["times"].items():
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}; {sh3}) on {card}")
+    print(json.dumps({"kernels": out["kernels"] + out2["kernels"]
+                      + out3["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -56,6 +56,11 @@ SIGNATURES = {
         "csr_decode_strerror": ((_I,), ctypes.c_char_p),
         "csr_decode_launch": ((_P, _L, _P, _P, _I, _I, _L, _L, _P, _P), _I),
     },
+    "sparse_attn": {
+        "sparse_attn_strerror": ((_I,), ctypes.c_char_p),
+        "sparse_attn_launch": ((_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _I,
+                                _I, _I, _I, ctypes.c_float, _P), _I),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
