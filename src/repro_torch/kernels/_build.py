@@ -43,8 +43,9 @@ SIGNATURES = {
     "bfm": {
         "bfm_strerror": ((_I,), ctypes.c_char_p),
         "bfm_tile_counts_smem": ((_I, _I, _I), _L),
+        "bfm_tile_counts_d1_path": ((_I, _I, _I), _I),
         "bfm_tile_counts_launch": ((_P, _P, _P, _P, _L, _L, _I, _I, _I, _P,
-                                    _P), _I),
+                                    ctypes.c_float, _P), _I),
         "bfm_mask_launch": ((_P, _P, _P, _P, _L, _L, _I, _P, _P), _I),
     },
     "emit_stream": {

@@ -3,11 +3,17 @@
 K3 ``bfm_tile_counts`` replaces the JAX package's Pallas kernel
 ``kernels/bfm.py:_count_kernel``: the int32 overlap count of every
 (ts × tu) tile, for inputs padded to tile multiples with non-matching
-±inf sentinel regions (``ops._pad_regions``).  One CTA per tile stages
-its S and U slices in shared memory and reduces its pair tests to one
-int32.  Bound on the card: operations, n·m·2d float32 compares (≈7.5 ms
-at the paper's fig. 9 size, d = 1, against the 67 TFLOP/s CUDA-core
-rate).
+±inf sentinel regions (``ops._pad_regions``).  Bound on the card:
+operations, n·m·2d float32 compares (≈7.5 ms at the paper's fig. 9
+size, d = 1, against the 67 TFLOP/s CUDA-core rate); in practice
+instruction issue.  At d = 1 with tu a power-of-two multiple of 16 up to
+512 and ts ≤ 4096 (fig. 9 and Koln: 256 × 256) each thread holds 16 U
+columns in registers against an S tile resident in shared memory, at
+three instructions a pair, 10 of its columns tested by exact saturating
+FMAs when ``fma_scale`` allows it (the wrapper reads the bounds'
+exponent range back to the host, one sync per call, and picks K or the
+all-FSETP instance); every other shape takes the general kernel, one CTA
+per tile.
 
 K4 ``bfm_mask`` replaces ``_mask_kernel``: the full (n, m) bool mask.
 Unlike the TPU kernel it takes any n and m and masks the ragged edge
@@ -45,6 +51,38 @@ def _check_bounds(s_lo, s_hi, u_lo, u_hi) -> None:
                          f"{s_lo.shape[1]} and {u_lo.shape[1]}")
 
 
+def fma_scale(*bounds: torch.Tensor) -> float:
+    """K = 2^k for K3's FMA compare on these float32 bounds, or 0.0 where
+    it would not be exact.
+
+    ``sat(y·K - x·K)`` equals ``[x < y]`` when every ``K·bound`` is finite
+    and two distinct bounds lie at least 1/K apart.  With every finite
+    nonzero |bound| in [2^emin, 2^(emax+1)), distinct bounds lie at least
+    2^(emin-23) apart, so k = 23 - emin; emax - emin <= 103 keeps each
+    K·bound below 2^127, and emin >= -104 keeps K a normal float (no
+    subnormal bound).  Infinities, NaN and zeros need no condition.  Per
+    tensor, a min and a max over the bits of |bound|, then one host read
+    for all of them (a device sync).
+    """
+    ext = []
+    for b in bounds:
+        # |b|'s bits less one, ordered as |b|: finite nonzero values fall
+        # in [0, 0x7F7FFFFE]; zero (wrapped to 0x7FFFFFFF), ±inf and NaN
+        # lie above, out of both reductions
+        key = (b.view(torch.int32) & 0x7FFFFFFF).sub_(1).bitwise_and_(
+            0x7FFFFFFF)
+        ext += [key.amin(), torch.where(key < 0x7F7FFFFF, key, -1).amax()]
+    keys = torch.stack(ext).tolist()
+    lo, hi = min(keys[0::2]), max(keys[1::2])
+    if hi < 0:                        # only zeros, infinities and NaN
+        return 1.0
+    # biased exponents; a subnormal has 0
+    e_lo, e_hi = (lo + 1) >> 23, (hi + 1) >> 23
+    if e_lo < 127 - 104 or e_hi - e_lo > 103:
+        return 0.0
+    return 2.0 ** (23 - (e_lo - 127))
+
+
 def bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, *, ts: int = 256,
                     tu: int = 256) -> torch.Tensor:
     """Per-tile overlap counts int32 (n/ts, m/tu); n%ts == m%tu == 0."""
@@ -59,19 +97,30 @@ def bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, *, ts: int = 256,
     _check_bounds(s_lo, s_hi, u_lo, u_hi)
     if ts * tu > _INT32_MAX:
         raise ValueError(f"a tile count must fit int32; ts*tu = {ts * tu}")
-    out = torch.empty((n // ts, m // tu), dtype=torch.int32,
-                      device=s_lo.device)
     if n == 0 or m == 0:
-        return out
+        return torch.empty((n // ts, m // tu), dtype=torch.int32,
+                           device=s_lo.device)
     lib = _build.load("bfm")
     d = s_lo.shape[1]
     if lib.bfm_tile_counts_smem(ts, tu, d) == 0:
         raise ValueError(f"tiles ts={ts}, tu={tu} at d={d} need more shared "
                          "memory than a CTA has (227 KB)")
+    K = (fma_scale(s_lo, s_hi, u_lo, u_hi)
+         if lib.bfm_tile_counts_d1_path(ts, tu, d) else 0.0)
+    return _launch_tile_counts(s_lo, s_hi, u_lo, u_hi, ts, tu, K)
+
+
+def _launch_tile_counts(s_lo, s_hi, u_lo, u_hi, ts, tu, K) -> torch.Tensor:
+    """K3's launch for bounds that ``bfm_tile_counts`` has checked, with
+    ``fma_scale``'s K (0.0 for the all-FSETP form)."""
+    n, m = s_lo.shape[0], u_lo.shape[0]
+    out = torch.empty((n // ts, m // tu), dtype=torch.int32,
+                      device=s_lo.device)
+    lib = _build.load("bfm")
     rc = _build.launch(
         s_lo.device, lib.bfm_tile_counts_launch, s_lo.data_ptr(),
-        s_hi.data_ptr(), u_lo.data_ptr(), u_hi.data_ptr(), n, m, d, ts, tu,
-        out.data_ptr())
+        s_hi.data_ptr(), u_lo.data_ptr(), u_hi.data_ptr(), n, m,
+        s_lo.shape[1], ts, tu, out.data_ptr(), K)
     _build.check(lib, "bfm", rc)
     bfm_tile_counts.launches += 1
     return out

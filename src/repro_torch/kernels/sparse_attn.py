@@ -16,7 +16,19 @@ Bound on the card: operations, ``4 · dh`` FLOP per allowed (query, key)
 pair and head (``kv <= q``, ``kv < end``, in a walked block), against the
 bf16 tensor-core rate; at Zamba2-2.7B's attention (32 heads, dh 80, 32k
 tokens, window 4096) that is ~1.3e12 FLOP, ~1.3 ms, against ~0.67 GB of
-q/k/v/out (~0.2 ms).
+q/k/v/out (~0.2 ms).  bfloat16 inputs run on the tensor cores
+(``mma.sync``, float32 accumulate), float32 inputs on the CUDA cores.
+
+Accuracy against the plain version (``BF16_TOL``, ``F32_TOL``).  In
+float32 both compute the same sums in another order: 2e-5.  In bfloat16
+the kernel rounds P to bf16 before P·V (relative error <= 2^-8 per
+weight, bf16's unit roundoff) while its row sums stay float32, so an
+output element moves by at most ``2^-8 · (sum of p·|v|) / l``, which is
+the plain version evaluated on ``|v|``; the output's own rounding adds at
+most ``2^-8·|out|``, inside ``2^-7·|want|``.  So every element satisfies
+``|got - want| <= atol + ptol·plain(|v|) + rtol·|want|``, and the
+relative RMS of the difference stays under ``rms`` (the roundings do not
+line up: their RMS is far below their worst case).
 
 The public functions keep the JAX package's layouts: ``sparse_attn_bh``
 (BH, S, dh), ``sparse_attn_1h`` (S, dh) and ``sparse_attn``
@@ -42,6 +54,10 @@ import torch
 from . import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel against its plain version (see the module docstring); ptol
+# scales the plain version evaluated on |v|
+BF16_TOL = dict(atol=1e-4, rtol=2 ** -7, ptol=2 ** -8, rms=2 ** -8)
+F32_TOL = dict(atol=2e-5, rtol=2e-5, ptol=0.0, rms=2e-5)
 MAX_DH = 256
 # CUDA's limit on gridDim.y, which carries batch·head
 _MAX_BH = 65535

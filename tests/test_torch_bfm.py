@@ -89,6 +89,70 @@ def test_plain_tile_counts_and_mask_match_pallas_interpret(case, d):
     assert before == (bfm.bfm_tile_counts.launches, bfm.bfm_mask.launches)
 
 
+def _sat_compare(x, y, K):
+    """K3's FMA compare sat(y·K - x·K) for every (x, y), emulated in
+    float64: K·bound is exact, and the rounded difference is >= 1 exactly
+    when the exact one is (1 is representable, rounding is monotone);
+    inf - inf gives NaN, which saturates to 0."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        d = y.astype(np.float64)[None, :] * K - x.astype(np.float64)[:, None] * K
+    return np.clip(np.nan_to_num(d, nan=0.0, posinf=1.0, neginf=0.0), 0, 1)
+
+
+def _adversarial_bounds(seed, emin, emax):
+    """float32 bounds with exponents in [emin, emax], each next to its
+    1-ulp neighbours, plus zeros, infinities and NaN."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(emin, emax + 1, 120)
+    v = (rng.uniform(1, 2, 120) * 2.0 ** e).astype(np.float32)
+    v[::3] = -v[::3]
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    v = np.concatenate([v, np.nextafter(v, up), np.nextafter(v, down),
+                        np.float32([0, 2.0 ** emin, 2.0 ** emax, np.inf,
+                                    -np.inf, np.nan])])
+    return v[(v == 0) | ~np.isfinite(v) | (np.abs(v) >= 2.0 ** emin)]
+
+
+# exponent ranges: fig. 9's, the widest spread K3's FMA compare takes
+# (103 octaves), and one that starts at its lowest exponent (-104)
+@pytest.mark.parametrize("emin,emax", [(-4, 19), (-40, 63), (-104, -1)])
+def test_fma_scale_makes_the_fma_compare_exact(emin, emax):
+    v = _adversarial_bounds(emin + 200, emin, emax)
+    K = bfm.fma_scale(torch.from_numpy(v))
+    assert K == 2.0 ** (23 - emin)
+    with np.errstate(invalid="ignore"):
+        want = v[:, None] < v[None, :]
+    np.testing.assert_array_equal(_sat_compare(v, v, K), want)
+    # the condition is tight: half that K leaves 1-ulp gaps at 1/2
+    assert not np.array_equal(_sat_compare(v, v, K / 2), want)
+
+
+@pytest.mark.parametrize("bad", ["subnormal", "spread_104", "below_2^-104"])
+def test_fma_scale_refuses_where_the_fma_compare_is_not_exact(bad):
+    v = {"subnormal": [1e-40, 1.0],
+         "spread_104": [2.0 ** -40, 2.0 ** 64],
+         "below_2^-104": [2.0 ** -105, 1.0]}[bad]
+    assert bfm.fma_scale(torch.tensor(v, dtype=torch.float32)) == 0.0
+    only_special = torch.tensor([0.0, float("inf"), float("nan")])
+    assert bfm.fma_scale(only_special) == 1.0
+
+
+@pytest.mark.parametrize("emin,emax", [(-4, 19), (-40, 63), (-104, -1)])
+def test_fma_scale_takes_the_range_over_all_four_bounds(emin, emax):
+    # the extremes sit in different tensors, one of them holds no finite
+    # nonzero bound; K is that of the four together
+    v = _adversarial_bounds(emin + 300, emin, emax)
+    parts = [torch.from_numpy(v[np.abs(v) < 2.0 ** (emin + 1)]),
+             torch.from_numpy(v[np.abs(v) >= 2.0 ** (emin + 1)]),
+             torch.tensor([0.0, float("inf"), float("nan")]),
+             torch.from_numpy(v[::-1].copy())]
+    assert bfm.fma_scale(*parts) == bfm.fma_scale(torch.from_numpy(v)) \
+        == 2.0 ** (23 - emin)
+    # a subnormal in any one of them refuses the FMA form
+    sub = torch.tensor([1e-40, 1.0])
+    assert bfm.fma_scale(*parts[:3], sub) == 0.0
+
+
 @pytest.mark.parametrize("tile", [1, 7, 64, 4096])
 def test_bfm_count_per_sub_matches_reference(tile):
     arrs = _boxes(4, 90, 110, 2, ties=True)

@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import MatchSpec, build_plan, paper_workload  # noqa: E402
 from repro_torch.core import sbm  # noqa: E402
-from repro_torch.kernels import bfm, emit, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, bfm, emit, ops, ref  # noqa: E402
 from repro_torch.kernels import sbm_sweep as sweep  # noqa: E402
 from repro_torch.kernels import sparse_attn as tsa  # noqa: E402
 from repro_torch.sparse import BlockPlan, block_windows  # noqa: E402
@@ -112,8 +112,15 @@ def test_kernel_wrappers_reject_bad_tensors(card):
         emit.twopass_emit(t[1], t[1], t[2], perm, perm, max_pairs=3)
 
 
-def _boxes(card, n, m, d, seed):
-    """Integer-grid boxes (exact ties) with every fifth S region empty."""
+def _boxes(card, n, m, d, seed, values="grid"):
+    """Integer-grid boxes (exact ties, duplicate endpoints) with every
+    fifth S region and every seventh U region empty (lo == hi).
+
+    ``values="ulp"`` also puts every third U region's bounds one ulp off
+    an S region's (in dimension 0) and adds bounds near 2^-40 and 2^62
+    to S, the widest exponent spread K3's FMA compare takes;
+    ``values="subnormal"`` adds a subnormal bound as well, which sends
+    K3's d1 path to its FSETP compare."""
     rng = np.random.default_rng(seed)
 
     def side(k):
@@ -124,23 +131,54 @@ def _boxes(card, n, m, d, seed):
     s_lo, s_hi = side(n)
     s_hi[::5] = s_lo[::5]
     u_lo, u_hi = side(m)
+    u_hi[3::7] = u_lo[3::7]
+    if values != "grid":     # shifted off 0, whose neighbour is subnormal
+        s_lo, s_hi, u_lo, u_hi = (x + 1 for x in (s_lo, s_hi, u_lo, u_hi))
+        j = rng.integers(0, n, m)[::3]
+        up, down = np.float32(np.inf), np.float32(-np.inf)
+        u_hi[::3, 0] = np.nextafter(s_lo[j, 0], up)
+        u_lo[::3, 0] = np.nextafter(s_hi[j, 0], down)
+        u_lo[::3, 0] = np.minimum(u_lo[::3, 0], u_hi[::3, 0])
+        s_lo[-1, 0], s_hi[-1, 0] = np.float32(2.0 ** -40), np.float32(2.0 ** 62)
+        if values == "subnormal":
+            s_lo[0, 0] = np.float32(1e-40)
     return (convert.regions_from_numpy(s_lo, s_hi, card),
             convert.regions_from_numpy(u_lo, u_hi, card))
 
 
-# m covers every store width of K4 (16, 8, 4, 2 and 1 bytes)
-# (2048, 4096, 2048, 2048) needs more than 48 KB of shared memory per
-# K3 CTA at d >= 2, the opt-in launch path
-@pytest.mark.parametrize("d", [1, 2, 3])
-@pytest.mark.parametrize("n,m,ts,tu", [(256, 1024, 256, 256),
-                                       (300, 517, 64, 128),
-                                       (1000, 1000, 256, 256),
-                                       (5, 1004, 8, 16), (777, 998, 32, 512),
-                                       (2048, 4096, 2048, 2048)])
-def test_bfm_kernels_match_plain(card, n, m, ts, tu, d):
-    S, U = _boxes(card, n, m, d, seed=n + m + d)
-    s_lo, s_hi = ops._pad_regions(S.lo, S.hi, ts)
-    u_lo, u_hi = ops._pad_regions(U.lo, U.hi, tu)
+def _sentinel_tiles(lo, hi, rows):
+    """Append ``rows`` regions that match nothing (lo = +inf, hi = -inf)."""
+    d = lo.shape[1]
+    return (torch.cat([lo, lo.new_full((rows, d), float("inf"))]),
+            torch.cat([hi, hi.new_full((rows, d), float("-inf"))]))
+
+
+# (n, m, ts, tu, whole tiles of sentinels appended to S and to U), on
+# the three kinds of bounds of ``_boxes``.  K3
+# takes its d1 path at d = 1 with tu in {16, ..., 512} and ts <= 4096:
+# 256 × 256 (fig. 9's tile), 64 × 128, 8 × 16 (one thread per tile),
+# 32 × 512 (a warp per tile) and an odd ts = 3 whose m spills one column
+# group into a second 4096-column chunk; tu = 8 (smaller than one
+# 16-column register block), 2048 × 2048 and every d > 1 take the
+# general path.  m covers every store width of K4 (16, 8, 4, 2 and 1
+# bytes).  (2048, 4096, 2048, 2048) needs more than 48 KB of shared
+# memory per general CTA at d >= 2, the opt-in launch path.
+@pytest.mark.parametrize("values", ["grid", "ulp", "subnormal"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,m,ts,tu,pad", [(256, 1024, 256, 256, 0),
+                                           (300, 517, 64, 128, 0),
+                                           (1000, 1000, 256, 256, 2),
+                                           (5, 1004, 8, 16, 0),
+                                           (777, 998, 32, 512, 1),
+                                           (2048, 4096, 2048, 2048, 0),
+                                           (40, 100, 4, 8, 3),
+                                           (33, 4100, 3, 16, 1)])
+def test_bfm_kernels_match_plain(card, n, m, ts, tu, pad, d, values):
+    S, U = _boxes(card, n, m, d, seed=n + m + d, values=values)
+    s_lo, s_hi = _sentinel_tiles(*ops._pad_regions(S.lo, S.hi, ts), pad * ts)
+    u_lo, u_hi = _sentinel_tiles(*ops._pad_regions(U.lo, U.hi, tu), pad * tu)
+    d1 = d == 1 and tu in (16, 32, 64, 128, 256, 512) and ts <= 4096
+    assert _build.load("bfm").bfm_tile_counts_d1_path(ts, tu, d) == d1
     before = (bfm.bfm_tile_counts.launches, bfm.bfm_mask.launches)
     tiles = bfm.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, ts=ts, tu=tu)
     mask = bfm.bfm_mask(S.lo, S.hi, U.lo, U.hi)
@@ -149,6 +187,8 @@ def test_bfm_kernels_match_plain(card, n, m, ts, tu, d):
         before[0] + 1, before[1] + 1)
     assert torch.equal(tiles, ref.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi,
                                                   ts, tu))
+    if pad:
+        assert not bool(tiles[-pad:].any() or tiles[:, -pad:].any())
     assert torch.equal(mask, ref.bfm_mask(S.lo, S.hi, U.lo, U.hi))
     assert int(tiles.sum(dtype=torch.int64)) == int(mask.sum())
 
@@ -274,16 +314,19 @@ def _attn_inputs(card, plan, BH, dh, dtype, skv=None, seed=0):
     return t(plan.seq_len), t(skv), t(skv), starts, ends
 
 
-def _assert_k7_close(got, want):
-    """K7 and its plain version read the same inputs and compute in
-    float32: in bfloat16 they are one output rounding apart at most
-    (2^-7·|want|), and the relative RMS of the difference stays under
-    2^-8; in float32 the JAX test's 2e-5 holds."""
-    bf16 = want.dtype == torch.bfloat16
-    atol, rtol, rms = (1e-4, 2 ** -7, 2 ** -8) if bf16 else (2e-5,) * 3
+def _assert_k7_close(got, want, want_abs_v):
+    """K7 against its plain version ``want``, within the kernel's stated
+    accuracy (``sparse_attn.BF16_TOL`` / ``F32_TOL``): elementwise
+    ``atol + ptol·plain(|v|) + rtol·|want|``, where ``want_abs_v`` is the
+    plain version on |v| (bfloat16 rounds P before P·V), and a relative
+    RMS limit."""
+    tol = tsa.BF16_TOL if want.dtype == torch.bfloat16 else tsa.F32_TOL
     got, want = got.float(), want.float()
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    assert float((got - want).norm()) <= rms * float(want.norm())
+    lim = (tol["atol"] + tol["ptol"] * want_abs_v.float()
+           + tol["rtol"] * want.abs())
+    diff = (got - want).abs()
+    assert bool((diff <= lim).all()), float((diff - lim).max())
+    assert float(diff.norm()) <= tol["rms"] * float(want.norm())
 
 
 def _assert_k7_matches_plain(q, k, v, starts, ends, *, bq, bkv, sink_end):
@@ -292,19 +335,28 @@ def _assert_k7_matches_plain(q, k, v, starts, ends, *, bq, bkv, sink_end):
                              sink_end=sink_end)
     torch.cuda.synchronize()
     assert tsa.sparse_attn_bh.launches == before + 1
-    want = ref.sparse_attn_bh(q, k, v, starts, ends, bq=bq, bkv=bkv,
-                              sink_end=sink_end)
+    kw = dict(bq=bq, bkv=bkv, sink_end=sink_end)
+    want = ref.sparse_attn_bh(q, k, v, starts, ends, **kw)
+    want_abs_v = ref.sparse_attn_bh(q, k, v.abs(), starts, ends, **kw)
     assert got.dtype == q.dtype and got.shape == q.shape
     assert bool(torch.isfinite(got.float()).all())
-    _assert_k7_close(got, want)
+    _assert_k7_close(got, want, want_abs_v)
 
 
+# (seq, bq, bkv, window, sink blocks, Skv): a Zamba2-like plan, the
+# "mean of v" plan (a sink-free window narrower than a q block, so rows
+# meet no allowed key) and Skv past Sq; bfloat16 runs on the tensor
+# cores, float32 on the CUDA cores
+@pytest.mark.parametrize("plan_case", [(1024, 128, 128, 256, 1, None),
+                                       (128, 64, 32, 32, 0, None),
+                                       (192, 64, 128, 128, 0, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128])
-def test_sparse_attn_kernel_matches_plain(card, dh, dtype):
-    plan = BlockPlan(1024, 128, 128, 256, 1)
-    args = _attn_inputs(card, plan, 3, dh, dtype, seed=dh)
-    _assert_k7_matches_plain(*args, bq=128, bkv=128, sink_end=plan.sink_end)
+@pytest.mark.parametrize("dh", [8, 16, 32, 40, 64, 80, 128, 256])
+def test_sparse_attn_kernel_matches_plain(card, dh, dtype, plan_case):
+    seq, bq, bkv, window, sink, skv = plan_case
+    plan = BlockPlan(seq, bq, bkv, window, sink)
+    args = _attn_inputs(card, plan, 3, dh, dtype, skv=skv, seed=dh)
+    _assert_k7_matches_plain(*args, bq=bq, bkv=bkv, sink_end=plan.sink_end)
 
 
 # (seq, bq, bkv, window, sink blocks, sink_end, Skv): ragged S and
@@ -351,11 +403,12 @@ def test_sparse_attn_batched_fold_matches_plain(card, dtype):
     assert out.shape == (B, 256, H, dh)
     for b in range(B):
         for h in range(H):
-            want = ref.sparse_attn_bh(
-                q[b, :, h][None].contiguous(), k[b, :, h][None].contiguous(),
-                v[b, :, h][None].contiguous(), starts, ends, bq=32, bkv=32,
-                sink_end=plan.sink_end)[0]
-            _assert_k7_close(out[b, :, h], want)
+            qh, kh, vh = (x[b, :, h][None].contiguous() for x in (q, k, v))
+            kw = dict(bq=32, bkv=32, sink_end=plan.sink_end)
+            want = ref.sparse_attn_bh(qh, kh, vh, starts, ends, **kw)[0]
+            want_abs_v = ref.sparse_attn_bh(qh, kh, vh.abs(), starts, ends,
+                                            **kw)[0]
+            _assert_k7_close(out[b, :, h], want, want_abs_v)
 
 
 def test_planner_on_the_card_launches_k1_k2_and_equals_cpu(card):

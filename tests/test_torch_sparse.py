@@ -72,11 +72,17 @@ def token_mask_from_plan(plan) -> np.ndarray:
     return causal & (win | sink)
 
 
-def reference_loop(q, k, v, starts, ends, *, bq, bkv, sink_end):
+def reference_loop(q, k, v, starts, ends, *, bq, bkv, sink_end, tile=None,
+                   round_p=False):
     """numpy transcription of the JAX package's K7 body
     (``kernels/sparse_attn.py:31-81``) for one head, in float32.  Keys
     at or past Skv are not there (the port's rule at the ragged edge,
-    where the TPU kernel's clamped slice would shift its keys)."""
+    where the TPU kernel's clamped slice would shift its keys).
+
+    ``tile`` walks the sink range and the window range in key tiles of
+    that size instead of ``bkv`` blocks, as the CUDA kernel does (64);
+    ``round_p`` rounds the weights P to bfloat16 before P·V while the row
+    sums stay unrounded, as its bfloat16 tensor-core path does."""
     Sq, dh = q.shape
     Skv = k.shape[0]
     out = np.zeros((Sq, dh), np.float32)
@@ -89,11 +95,11 @@ def reference_loop(q, k, v, starts, ends, *, bq, bkv, sink_end):
         m = np.full(bq, NEG_INF, np.float32)
         l = np.zeros(bq, np.float32)
 
-        def attend(kv_off, acc, m, l):
-            kv_pos = kv_off + np.arange(bkv)
-            there = kv_pos < Skv
-            kb = np.zeros((bkv, dh), np.float32)
-            vb = np.zeros((bkv, dh), np.float32)
+        def attend(kv_off, width, top, acc, m, l):
+            kv_pos = kv_off + np.arange(width)
+            there = kv_pos < top
+            kb = np.zeros((width, dh), np.float32)
+            vb = np.zeros((width, dh), np.float32)
             kb[there] = k[kv_pos[there]]
             vb[there] = v[kv_pos[there]]
             s = qi @ kb.T
@@ -102,16 +108,26 @@ def reference_loop(q, k, v, starts, ends, *, bq, bkv, sink_end):
             m2 = np.maximum(m, s.max(axis=1))
             alpha = np.exp(m - m2)
             p = np.exp(s - m2[:, None]) * there[None, :]
-            return acc * alpha[:, None] + p @ vb, m2, l * alpha + p.sum(1)
+            pv = _bf16(p) if round_p else p
+            return acc * alpha[:, None] + pv @ vb, m2, l * alpha + p.sum(1)
 
-        for j in range(sink_end // bkv):
-            acc, m, l = attend(j * bkv, acc, m, l)
         start_blk = max(int(starts[i]), sink_end) // bkv
-        for j in range((end - start_blk * bkv + bkv - 1) // bkv):
-            acc, m, l = attend(start_blk * bkv + j * bkv, acc, m, l)
+        nblk = max((end - start_blk * bkv + bkv - 1) // bkv, 0)
+        for lo, hi in ((0, sink_end // bkv * bkv),
+                       (start_blk * bkv, (start_blk + nblk) * bkv)):
+            top = min(hi, Skv)
+            step = tile or bkv
+            for off in range(lo, top, step):
+                acc, m, l = attend(off, step, top, acc, m, l)
         safe_l = np.where(l > 0, l, 1.0).astype(np.float32)
         out[i * bq:(i + 1) * bq] = acc / safe_l[:, None]
     return out
+
+
+def _bf16(x):
+    """float32 values rounded to the nearest bfloat16 (ties to even)."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
 
 
 def _qkv(seed, *shape):
@@ -251,6 +267,53 @@ def test_plain_matches_reference_loop(monkeypatch, seq, bq, bkv, window,
     want = reference_loop(q, k, v, starts.numpy(), ends.numpy(), bq=bq,
                           bkv=bkv, sink_end=sink_end)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# K7's bfloat16 arithmetic on the CPU: the kernel's 64-key tiles and P
+# rounded to bf16 before P·V, on bf16 inputs, against the float32 plain
+# version.  Without the rounding the tiles change nothing (2e-5); with
+# it, and the output rounded to bf16 as the kernel writes it, every
+# element stays within sparse_attn.BF16_TOL's bound
+# atol + ptol·plain(|v|) + rtol·|want| and the relative RMS within rms.
+@pytest.mark.parametrize("seq,bq,bkv,window,sink_end,skv", [
+    (128, 64, 32, 32, 0, 128),      # the "mean of v" rows
+    (256, 32, 32, 64, 32, 256),
+    (224, 32, 64, 96, 100, 224),    # S % bkv != 0, sink_end % bkv != 0
+    (512, 128, 128, 256, 128, 512),  # Zamba2's blocks, cut
+    (192, 64, 128, 128, 128, 200),  # Skv > Sq, bkv > bq
+])
+@pytest.mark.parametrize("round_p", [False, True])
+def test_bf16_kernel_arithmetic_within_the_stated_tolerance(
+        seq, bq, bkv, window, sink_end, skv, round_p):
+    plan = tplanner.BlockPlan(seq, bq, bkv, window, 0)
+    starts, ends = tplanner.block_windows(plan, device="cpu")
+    rng = np.random.default_rng(seq + skv)
+    q = _bf16(rng.normal(size=(seq, 40)))
+    k = _bf16(rng.normal(size=(skv, 40)))
+    v = _bf16(rng.normal(size=(skv, 40)))
+    kw = dict(bq=bq, bkv=bkv, sink_end=sink_end)
+    want = tsa.sparse_attn_1h(_t(q), _t(k), _t(v), starts, ends,
+                              **kw).numpy()
+    got = reference_loop(q, k, v, starts.numpy(), ends.numpy(), tile=64,
+                         round_p=round_p, **kw)
+    if not round_p:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+        return
+    got = _bf16(got)
+    want_abs_v = tsa.sparse_attn_1h(_t(q), _t(k), _t(np.abs(v)), starts,
+                                    ends, **kw).numpy()
+    tol = tsa.BF16_TOL
+    diff = np.abs(got - want)
+    lim = tol["atol"] + tol["ptol"] * want_abs_v + tol["rtol"] * np.abs(want)
+    assert (diff <= lim).all(), (diff - lim).max()
+    assert np.linalg.norm(diff) <= tol["rms"] * np.linalg.norm(want)
+    # the rounding of P alone stays within the ptol term: bf16's unit
+    # roundoff 2^-8 times sum(p·|v|) / l
+    unrounded = reference_loop(q, k, v, starts.numpy(), ends.numpy(),
+                               tile=64, **kw)
+    p_only = np.abs(reference_loop(q, k, v, starts.numpy(), ends.numpy(),
+                                   tile=64, round_p=True, **kw) - unrounded)
+    assert (p_only <= 1e-6 + tol["ptol"] * want_abs_v).all()
 
 
 def test_rows_without_an_allowed_key_get_the_mean_of_v():
