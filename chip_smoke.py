@@ -37,7 +37,7 @@ or the JAX package.  Phases, each of which must pass:
 10. mask    ``mask()`` and exact ``pairs()`` of the bfm plan at N = 8e4
             (n*m = 1.6e9): K4's mask bit-equal to the plain mask, the
             pairs bit-equal to the plain ``bfm_pairs`` and set-equal to
-            SBM's pairs;
+            SBM's pairs; K4 at d = 2 (same n, m) bit-equal to plain;
 11. routes  fig. 9 through ``emit_route="streaming"`` (K5) and ``"csr"``
             (the lazy view, windows decoded by K6): the K5 buffer and
             every csr window equal the resident (K2) buffer, and K5
@@ -51,6 +51,11 @@ or the JAX package.  Phases, each of which must pass:
             instance; K3's fig. 9 tiles take its d1 path, whose SASS
             instructions per pair (``cuobjdump`` of the built library)
             give the issue floor at fig. 9; its registers and spills;
+            K4 and K6 also alone (20 back-to-back raw launches over one
+            event pair), K4 at d = 2, the store ceiling (``fill_`` of
+            the mask's bytes), K6 on a 65,536-slot window, their TB/s,
+            and every K4/K6 instance's registers, shared memory and
+            spills (``cuobjdump``);
 14. planner the sparse-attention planner's ``block_windows`` at
             Zamba2-2.7B's plan (S = 32,768, 128-token blocks, window
             4096, one sink block) on the card, through K1 and K2: the
@@ -220,6 +225,27 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_back_to_back(fn, launches: int = 20, reps: int = REPS) -> float:
+    """Median over ``reps`` of one CUDA-event pair around ``launches``
+    back-to-back calls of ``fn``, divided by ``launches``: while the card
+    runs the queued kernels, the host's time between launches is hidden,
+    so a raw launch function gives the kernel's own time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -491,6 +517,15 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
     print(f"[mask] n={SM.n} m={UM.n} K={k_m}: K4 mask bit-equal to plain; "
           f"bfm pairs bit-equal to plain, set-equal to sbm; K4 launches="
           f"{k4_launches}")
+    # the same n and m at d = 2: K4 holds both dimensions in registers
+    SM2, UM2 = paper_workload(**mask_wl, d=2, device=dev)
+    mask2_args = (SM2.lo, SM2.hi, UM2.lo, UM2.hi)
+    mask2 = bfm.bfm_mask(*mask2_args)
+    k4_d2_err = exact_err(mask2, ref.bfm_mask(*mask2_args))
+    check(k4_d2_err == 0, f"K4 at d = 2 != plain (max err {k4_d2_err})")
+    print(f"[mask] d=2 n={SM2.n} m={UM2.n} K={int(mask2.sum())}: K4 "
+          "bit-equal to plain")
+    del mask2
 
     # -- 11. streaming and csr routes at fig. 9 ----------------------------
     dense, k_r = build_plan(MatchSpec(emit_route="resident", device=dev),
@@ -634,15 +669,18 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
               f"instance (one subnormal bound)")
     # K4: one byte per pair out, the bounds in; two compares per pair
     k4_bound = bound_ms(nm_mask + 8 * (SM.n + UM.n), 2 * nm_mask)
+    if dev == "cuda":
+        times.update(time_k4_k6(mask_args, mask2_args, k6_args))
+        print_k4_k6(times, k4_bound, nm_mask, k6_args[4])
     win = emit.stream_window(bl)
     # K5: the packed table and the permutations in, 8 B per slot out;
     # per slot a binary search over the window plus ~12 operations
     k5_bound = bound_ms(4 * 4 * e_pad + 4 * E + 8 * k_r,
                         (6 * math.ceil(math.log2(win)) + 12) * k_r)
     # K6 reads what its window needs: one partner per slot (4 B) and
-    # writes 8 B per slot; its search runs over the whole table
-    k6_bound = bound_ms(12 * w_n,
-                        (6 * math.ceil(math.log2(e_pad)) + 12) * w_n)
+    # writes 8 B per slot; about a dozen operations a slot (its owner from
+    # the scan, the decode), the two searches a tile negligible beside them
+    k6_bound = bound_ms(12 * w_n, 12 * w_n)
 
     def rec(name, src, replaces, launches, err, key, bound):
         return {"name": name, "route": "cuda", "source": src,
@@ -655,7 +693,7 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
         rec("bfm_tile_counts", "src/repro_torch/csrc/bfm.cu",
             "src/repro/kernels/bfm.py:30", k3_launches, k3_err, "k3",
             k3_bound),
-        rec("bfm_mask", "src/repro_torch/csrc/bfm.cu",
+        rec("bfm_mask", "src/repro_torch/csrc/bfm_mask.cu",
             "src/repro/kernels/bfm.py:43", k4_launches, k4_err, "k4",
             k4_bound),
         rec("twopass_emit_streaming", "src/repro_torch/csrc/emit_stream.cu",
@@ -671,6 +709,79 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
     return {"launches": launches, "kernels": kernels, "times": times,
             "shapes": {"fig9_pairs": nm, "mask_pairs": nm_mask, "K": k_r,
                        "k6_window": w_n}}
+
+
+def time_k4_k6(mask_args, mask2_args, k6_args) -> dict:
+    """K4 and K6 beside their wrappers' times: each launch function
+    called raw, 20 launches back to back (``time_back_to_back``); K4 at
+    d = 2, the store ceiling (``fill_`` of the mask's bytes) and K6 on a
+    65,536-slot window (``windows()``'s default chunk)."""
+    import torch
+    from repro_torch.kernels import _build, bfm, emit
+    stream = torch.cuda.current_stream().cuda_stream
+    lib4, lib6 = _build.load("bfm_mask"), _build.load("csr_decode")
+    n, m = mask_args[0].shape[0], mask_args[2].shape[0]
+    out4 = torch.empty((n, m), dtype=torch.bool, device="cuda")
+
+    def raw(fn, *args):
+        check(fn(*args, stream) == 0, f"{fn.__name__} refused the launch")
+        return lambda: fn(*args, stream)
+
+    def k4_raw(args):
+        return raw(lib4.bfm_mask_launch, *(x.data_ptr() for x in args),
+                   n, m, args[0].shape[1], out4.data_ptr())
+
+    tab, perm_s, perm_u, w0, nsl = k6_args
+    small = (tab, perm_s, perm_u, w0, 1 << 16)
+    out6 = torch.empty((nsl, 2), dtype=torch.int32, device="cuda")
+
+    def k6_raw(nslots):
+        return raw(lib6.csr_decode_launch, tab.data_ptr(), tab.shape[1],
+                   perm_s.data_ptr(), perm_u.data_ptr(), perm_s.shape[0],
+                   perm_u.shape[0], w0, nslots, out6.data_ptr())
+
+    fill = torch.empty((n, m), dtype=torch.uint8, device="cuda")
+    return {
+        "k4_alone": time_back_to_back(k4_raw(mask_args)),
+        "k4_d2": time_ms(lambda: bfm.bfm_mask(*mask2_args)),
+        "k4_d2_alone": time_back_to_back(k4_raw(mask2_args)),
+        "store_ceiling_fill": time_ms(lambda: fill.fill_(1)),
+        "store_ceiling_fill_alone": time_back_to_back(lambda: fill.fill_(1)),
+        "k6_alone": time_back_to_back(k6_raw(nsl)),
+        "k6_65536": time_ms(lambda: emit.csr_decode_window(*small)),
+        "k6_65536_alone": time_back_to_back(k6_raw(1 << 16)),
+    }
+
+
+def print_k4_k6(t: dict, k4_bound, mask_bytes: int, k6_slots: int) -> None:
+    """K4's and K6's achieved rates and each instance's registers, shared
+    memory and spills (``cuobjdump`` of the built libraries)."""
+    def tbs(nbytes, ms):
+        return nbytes / (ms * 1e-3) / 1e12
+
+    print(f"[K4] n*m = {mask_bytes} B: {t['k4']!r} ms through the wrapper, "
+          f"{t['k4_alone']!r} ms alone ({tbs(mask_bytes, t['k4_alone'])!r} "
+          f"TB/s); d = 2 {t['k4_d2']!r} / {t['k4_d2_alone']!r} ms; store "
+          f"ceiling (fill_ of the same bytes) "
+          f"{t['store_ceiling_fill']!r} / {t['store_ceiling_fill_alone']!r} ms "
+          f"({tbs(mask_bytes, t['store_ceiling_fill_alone'])!r} TB/s); bound "
+          f"{k4_bound[0]!r} ms")
+    # K6's bound counts 8 B written and a 4-byte partner read per slot
+    print(f"[K6] {k6_slots} slots: {t['k6']!r} ms through the wrapper, "
+          f"{t['k6_alone']!r} ms alone ({tbs(12 * k6_slots, t['k6_alone'])!r} "
+          f"TB/s of 12 B a slot); 65536 slots {t['k6_65536']!r} / "
+          f"{t['k6_65536_alone']!r} ms ({tbs(12 << 16, t['k6_65536_alone'])!r}"
+          f" TB/s)")
+    for lib, stem in (("bfm_mask", "bfm_mask_kernel"),
+                      ("csr_decode", "csr_decode_kernel")):
+        for kname, fn in sorted(kernel_code(lib).items()):
+            if stem not in kname:
+                continue
+            inst = re.search(r"ILi(\d+)ELi(\d+)E", kname)
+            what = f"V={inst.group(1)} NREG={inst.group(2)}" if inst else ""
+            print(f"[{'K4' if lib == 'bfm_mask' else 'K6'}] {stem} {what}: "
+                  f"{resources(fn)}, static shared "
+                  f"{fn.get('shared', 'not read')} B")
 
 
 def check_close(got, want, what: str, *, atol: float, rtol: float,

@@ -1,8 +1,8 @@
-// K3 and K4 — brute-force matching (the paper's Algorithm 2) as tiles.
+// K3 — brute-force matching (the paper's Algorithm 2) as tile counts.
 //
 // K3 replaces the Pallas kernel `_count_kernel` of the JAX package
-// (src/repro/kernels/bfm.py:30), K4 its `_mask_kernel` (:43).  Both test
-// the d-dimensional half-open overlap predicate
+// (src/repro/kernels/bfm.py:30); K4, its mask, is in bfm_mask.cu.  It
+// tests the d-dimensional half-open overlap predicate
 //
 //   ok(i, j) = AND over k of  s_lo[i,k] < u_hi[j,k]  &&  u_lo[j,k] < s_hi[i,k]
 //
@@ -48,15 +48,6 @@
 //   share of the S rows, and the CTA reduces its counts to one int32 (a
 //   tile count is at most ts * tu).
 //
-// K4 (bfm_mask) writes the full (n, m) bool mask, one byte per pair, for
-// any n and m: the ragged edge is masked here, so nothing is padded or
-// trimmed and the mask comes out contiguous.  A CTA covers MASK_ROWS rows
-// and MASK_TX * V columns; each thread keeps V adjacent columns' dimension-0
-// bounds in registers and writes V bytes of a row as one V-byte store (V
-// is the largest of 16, 8, 4, 2, 1 that divides m, so every store is
-// aligned), so a warp writes 32 * V contiguous bytes of a row.  Bound on
-// the card: bytes — n*m written; at the mask phase's size (n = m = 4e4)
-// that is 1.6 GB, about 0.48 ms at 3.35 TB/s.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -68,9 +59,6 @@ constexpr int D1_THREADS = 256;                // K3 d1 path: threads per CTA
 constexpr int D1_C = 16;                       // U columns per thread
 constexpr int D1_CHUNK = D1_THREADS * D1_C;    // U columns per CTA pass
 constexpr int D1_MAX_TS = 4096;                // S strip <= 64 KB of shared memory
-constexpr int MASK_TX = 64;    // K4 column threads
-constexpr int MASK_TY = 4;     // K4 row threads
-constexpr int MASK_ROWS = 64;  // K4 rows per CTA
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
 constexpr size_t SMEM_MAX = 226 * 1024;  // 227 KB less the static part
 
@@ -263,89 +251,6 @@ bfm_tile_counts_d1_kernel(const float* __restrict__ s_lo,
   }
 }
 
-__device__ __forceinline__ uint32_t pack4(const bool* ok) {
-  return (uint32_t)ok[0] | (uint32_t)ok[1] << 8 | (uint32_t)ok[2] << 16 |
-         (uint32_t)ok[3] << 24;
-}
-
-// one aligned V-byte store of V adjacent mask bytes
-template <int V>
-__device__ __forceinline__ void store_bytes(uint8_t* dst, const bool* ok) {
-  if constexpr (V == 16) {
-    *reinterpret_cast<uint4*>(dst) =
-        make_uint4(pack4(ok), pack4(ok + 4), pack4(ok + 8), pack4(ok + 12));
-  } else if constexpr (V == 8) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(ok), pack4(ok + 4));
-  } else if constexpr (V == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = pack4(ok);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<uint16_t*>(dst) =
-        (uint16_t)((uint32_t)ok[0] | (uint32_t)ok[1] << 8);
-  } else {
-    *dst = ok[0];
-  }
-}
-
-template <int V>
-__global__ void __launch_bounds__(MASK_TX * MASK_TY)
-bfm_mask_kernel(const float* __restrict__ s_lo, const float* __restrict__ s_hi,
-                const float* __restrict__ u_lo, const float* __restrict__ u_hi,
-                long long n, long long m, int d, long long row_tiles,
-                uint8_t* __restrict__ out) {
-  const long long c0 = ((long long)blockIdx.x * MASK_TX + threadIdx.x) * V;
-  if (c0 >= m) return;  // no barrier below
-  float a[V], b[V];     // dimension 0 of this thread's V columns
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const bool in = c0 + v < m;
-    a[v] = in ? u_lo[(c0 + v) * d] : inf_f();
-    b[v] = in ? u_hi[(c0 + v) * d] : -inf_f();
-  }
-  for (long long rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
-    for (int i = threadIdx.y; i < MASK_ROWS; i += MASK_TY) {
-      const long long r = rt * MASK_ROWS + i;
-      if (r >= n) break;
-      const float lo = s_lo[r * d], hi = s_hi[r * d];
-      bool ok[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) ok[v] = (lo < b[v]) & (a[v] < hi);
-      for (int k = 1; k < d; ++k) {
-        const float lo_k = s_lo[r * d + k], hi_k = s_hi[r * d + k];
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (c0 + v < m) {
-            const long long x = (c0 + v) * d + k;
-            ok[v] = ok[v] & (lo_k < u_hi[x]) & (u_lo[x] < hi_k);
-          }
-        }
-      }
-      uint8_t* dst = out + r * m + c0;
-      if (c0 + V <= m) {
-        store_bytes<V>(dst, ok);
-      } else {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          if (c0 + v < m) dst[v] = ok[v];
-      }
-    }
-  }
-}
-
-template <int V>
-int launch_mask(const float* s_lo, const float* s_hi, const float* u_lo,
-                const float* u_hi, long long n, long long m, int d,
-                uint8_t* out, cudaStream_t stream) {
-  const long long col_blocks = (m + (long long)MASK_TX * V - 1) /
-                               ((long long)MASK_TX * V);
-  const long long row_tiles = (n + MASK_ROWS - 1) / MASK_ROWS;
-  if (col_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)col_blocks,
-                  (unsigned)(row_tiles < 65535 ? row_tiles : 65535));
-  bfm_mask_kernel<V><<<grid, dim3(MASK_TX, MASK_TY), 0, stream>>>(
-      s_lo, s_hi, u_lo, u_hi, n, m, d, row_tiles, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -420,20 +325,6 @@ int bfm_tile_counts_launch(const float* s_lo, const float* s_hi,
   bfm_tile_counts_kernel<<<(unsigned)grid, BLOCK, (size_t)smem, st>>>(
       s_lo, s_hi, u_lo, u_hi, d, ts, tu, ntu, ntiles, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K4.  Inputs (n, d) and (m, d) float32, any n, m >= 1; out bool (n, m).
-int bfm_mask_launch(const float* s_lo, const float* s_hi, const float* u_lo,
-                    const float* u_hi, long long n, long long m, int d,
-                    unsigned char* out, void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m % 16 == 0) return launch_mask<16>(s_lo, s_hi, u_lo, u_hi, n, m, d, out, st);
-  if (m % 8 == 0) return launch_mask<8>(s_lo, s_hi, u_lo, u_hi, n, m, d, out, st);
-  if (m % 4 == 0) return launch_mask<4>(s_lo, s_hi, u_lo, u_hi, n, m, d, out, st);
-  if (m % 2 == 0) return launch_mask<2>(s_lo, s_hi, u_lo, u_hi, n, m, d, out, st);
-  return launch_mask<1>(s_lo, s_hi, u_lo, u_hi, n, m, d, out, st);
 }
 
 }  // extern "C"

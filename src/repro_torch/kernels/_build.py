@@ -46,6 +46,9 @@ SIGNATURES = {
         "bfm_tile_counts_d1_path": ((_I, _I, _I), _I),
         "bfm_tile_counts_launch": ((_P, _P, _P, _P, _L, _L, _I, _I, _I, _P,
                                     ctypes.c_float, _P), _I),
+    },
+    "bfm_mask": {
+        "bfm_mask_strerror": ((_I,), ctypes.c_char_p),
         "bfm_mask_launch": ((_P, _P, _P, _P, _L, _L, _I, _P, _P), _I),
     },
     "emit_stream": {
@@ -55,6 +58,8 @@ SIGNATURES = {
     },
     "csr_decode": {
         "csr_decode_strerror": ((_I,), ctypes.c_char_p),
+        "csr_decode_tile": ((), _I),
+        "csr_decode_wmax": ((), _I),
         "csr_decode_launch": ((_P, _L, _P, _P, _I, _I, _L, _L, _P, _P), _I),
     },
     "sparse_attn": {

@@ -1,4 +1,5 @@
-"""K3 and K4 — brute-force tile kernels in CUDA (``csrc/bfm.cu``).
+"""K3 and K4 — brute-force kernels in CUDA (``csrc/bfm.cu``,
+``csrc/bfm_mask.cu``).
 
 K3 ``bfm_tile_counts`` replaces the JAX package's Pallas kernel
 ``kernels/bfm.py:_count_kernel``: the int32 overlap count of every
@@ -18,8 +19,12 @@ per tile.
 K4 ``bfm_mask`` replaces ``_mask_kernel``: the full (n, m) bool mask.
 Unlike the TPU kernel it takes any n and m and masks the ragged edge
 itself, so the mask comes out contiguous with nothing padded or
-trimmed.  Each thread writes several adjacent bytes of a row as one
-aligned store.  Bound on the card: bytes, n·m written.
+trimmed.  Bound on the card: bytes, n·m written.  Persistent CTAs hold
+16 columns' bounds per thread in registers (two dimensions at most; more
+are read through L1) and walk 32-row tiles whose S bounds they stage in
+shared memory; each thread writes V bytes of a row as one aligned store,
+V the largest of 16, 8, 4, 2, 1 that divides m, which picks the kernel
+instance.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version (``ref.bfm_tile_counts`` / ``ref.bfm_mask``) for CPU
@@ -137,12 +142,12 @@ def bfm_mask(s_lo, s_hi, u_lo, u_hi) -> torch.Tensor:
     out = torch.empty((n, m), dtype=torch.bool, device=s_lo.device)
     if n == 0 or m == 0:
         return out
-    lib = _build.load("bfm")
+    lib = _build.load("bfm_mask")
     rc = _build.launch(
         s_lo.device, lib.bfm_mask_launch, s_lo.data_ptr(), s_hi.data_ptr(),
         u_lo.data_ptr(), u_hi.data_ptr(), n, m, s_lo.shape[1],
         out.data_ptr())
-    _build.check(lib, "bfm", rc)
+    _build.check(lib, "bfm_mask", rc)
     bfm_mask.launches += 1
     return out
 

@@ -25,10 +25,16 @@ output is bit-identical to the plain pass 2 (``core.sbm``).
 ``csr_decode_window`` (K6, ``csrc/csr_decode.cu``, ``csr``)
     Replaces ``_csr_decode_kernel``.  Slots ``[w0, w0 + nslots)`` of
     the same buffer, decoded on demand from the packed table and the
-    permutations (the ``CSRPairs`` view holds nothing else): one thread
-    per slot searches the table in device memory and gathers.  The
-    TPU's fixed-length run copies and their padded permutations are not
-    needed.  Bound: bytes, 8 B written per slot.
+    permutations (the ``CSRPairs`` view holds nothing else).  One CTA
+    per tile of ``CSR_TILE`` slots: two warps find the tile's first and
+    last entries by 32-ary searches of the offsets; a tile that selects
+    at most ``CSR_WMAX`` entries (every tile below saturation) stages
+    them in shared memory, scatters each entry's first slot into an
+    owner array and max-scans it, so every slot finds its entry in
+    O(1); a tile that selects more (offsets repeated past ``max_pairs``)
+    binary-searches per slot between the two.  The TPU's fixed-length
+    run copies and their padded permutations are not needed.  Bound:
+    bytes, 8 B written and a 4-byte partner read per slot.
 
 The packed table's pad entries carry offset ``PAD_OFF = INT32_MAX``, not
 the reference's ``1 << 30``: pass 1 saturates offsets at ``max_pairs``,
@@ -52,6 +58,10 @@ DEF_BLOCK = 512        # K5 slots per CTA tile
 # a tile of B slots selects <= B + 1 consecutive compacted entries; +128
 # covers aligning the window base down to a multiple of 128
 STREAM_WIN_EXTRA = 256
+# K6's slots per CTA tile and the most table entries a tile stages
+# (``csrc/csr_decode.cu``: TILE, WMAX)
+CSR_TILE = 2048
+CSR_WMAX = CSR_TILE + 1
 
 
 def lane_pad(x: int, mult: int = 128) -> int:

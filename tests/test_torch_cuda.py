@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 and K4
-(``csrc/bfm.cu``), K5 (``csrc/emit_stream.cu``), K6
+K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 (``csrc/bfm.cu``),
+K4 (``csrc/bfm_mask.cu``), K5 (``csrc/emit_stream.cu``), K6
 (``csrc/csr_decode.cu``) and K7 (``csrc/sparse_attn.cu``) have no CPU
 mode, so these tests carry the
 ``cuda`` marker and skip on a host without a card.  The file imports neither JAX nor the JAX package, so it also runs
@@ -228,8 +228,9 @@ def test_stream_and_csr_kernels_match_plain(card, case):
 
 
 def test_mask_kernel_past_65535_row_tiles(card):
-    # 4.3e6 rows are 67,188 row tiles of 64: the grid's y extent stops at
-    # 65535, so the kernel's grid-stride loop must cover the rest
+    # 4.3e6 rows are 134,375 row tiles of 32, more than 65535 and than
+    # the persistent grid's CTAs: each CTA's grid-stride loop must cover
+    # its share (m = 3: one byte a store)
     S, U = _boxes(card, 4_300_000, 3, 1, seed=8)
     mask = bfm.bfm_mask(S.lo, S.hi, U.lo, U.hi)
     torch.cuda.synchronize()
@@ -254,6 +255,124 @@ def test_csr_kernel_above_2_30(card):
         torch.cuda.synchronize()
         assert torch.equal(got, sbm._twopass_window(
             offs, counts, starts, perm_s, perm_u, w0, stop))
+
+
+# K4 at every store width V (the largest of 16, 8, 4, 2, 1 dividing m:
+# 4096 and 4112 take 16, 4104 8, 1004 4, 998 2, 4097 and 517 1) and in
+# both register layouts (d = 1; d >= 2, dimensions past the second read
+# through L1).  n is not a multiple of the 32-row tile; 20,001 x 12,304
+# is 4 column blocks x 626 row tiles, more items than the persistent grid
+# has CTAs, so CTAs take several; 3 x 1,200,016 has 293 column blocks of
+# 4096, more than CTAs, so a CTA changes column block and reloads its U
+# bounds.
+@pytest.mark.parametrize("values", ["grid", "ulp", "subnormal"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,m", [(1000, 4096), (77, 4112), (31, 4104),
+                                 (64, 1004), (1001, 998), (300, 4097),
+                                 (333, 517), (5, 16), (20_001, 12_304),
+                                 (3, 1_200_016)])
+def test_mask_kernel_instances_match_plain(card, n, m, d, values):
+    S, U = _boxes(card, n, m, d, seed=n + m + d, values=values)
+    args = (S.lo, S.hi, U.lo, U.hi)
+    before = bfm.bfm_mask.launches
+    got = bfm.bfm_mask(*args)
+    torch.cuda.synchronize()
+    assert bfm.bfm_mask.launches == before + 1
+    assert torch.equal(got, ref.bfm_mask(*args))
+
+
+def _csr_case(card, case):
+    """Regions of K6's card tests: the saturated tables of
+    ``test_stream_and_csr_kernels_match_plain``, one run of 6000 slots
+    per emitter (several tiles each) and count-1 emitters."""
+    if case == "ties":
+        return _ties(card)
+    if case.startswith("paper"):
+        return paper_workload(4, 60_000, float(case[7:]), device=card)
+    if case == "wide":
+        rng = np.random.default_rng(1)
+        s_lo = rng.uniform(0, 1, 50).astype(np.float32)
+        u_lo = rng.uniform(1, 2, 6000).astype(np.float32)
+        return (convert.regions_from_numpy(s_lo, s_lo + 3, card),
+                convert.regions_from_numpy(u_lo, u_lo + 3, card))
+    lo = 2 * np.arange(5000, dtype=np.float32)
+    R = convert.regions_from_numpy(lo, lo + 1, card)
+    return R, R
+
+
+def _tile_spans(tab, w0, nslots):
+    """Entries k1 - k0 + 1 that each K6 tile of the window selects."""
+    t0 = torch.arange(w0, w0 + nslots, emit.CSR_TILE, device=tab.device)
+    t1 = torch.clamp(t0 + emit.CSR_TILE - 1, max=w0 + nslots - 1)
+    k0 = (torch.searchsorted(tab[0], t0.int(), right=True) - 1).clamp(min=0)
+    k1 = (torch.searchsorted(tab[0], t1.int(), right=True) - 1).clamp(min=0)
+    return k1 - k0 + 1
+
+
+@pytest.mark.parametrize("case", ["paper_a50", "paper_a0.5", "ties", "wide",
+                                  "ones"])
+def test_csr_kernel_tiles_match_plain(card, case):
+    lib = _build.load("csr_decode")
+    T = emit.CSR_TILE
+    assert (lib.csr_decode_tile(), lib.csr_decode_wmax()) == (T,
+                                                              emit.CSR_WMAX)
+    S, U = _csr_case(card, case)
+    k = sbm.sbm_count_binary(S, U)
+    rng = np.random.default_rng(6)
+    for cap in sorted({1, max(k // 3, 1), k, k + 100}):
+        perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+            S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], cap)[:5]
+        dense = ref.twopass_emit(offs, counts, starts, perm_s, perm_u,
+                                 max_pairs=cap)
+        tab = emit.pack_emitter_tables(offs, counts, starts, n=S.n, m=U.n)
+        windows = {(0, 1), (cap - 1, 1), (T // 2 + 3, 3 * T + 5),
+                   (max(cap - 2 * T - 7, 0), min(cap, 2 * T + 7)),
+                   (max(cap - T // 2, 0), 2 * T + 1), (cap + 5, T + 3),
+                   *((int(w), int(rng.integers(1, 3 * T)))
+                     for w in rng.integers(0, cap, 3))}
+        per_slot = 0
+        for w0, nsl in sorted(windows):
+            before = emit.csr_decode_window.launches
+            got = emit.csr_decode_window(tab, perm_s, perm_u, w0, nsl)
+            torch.cuda.synchronize()
+            assert emit.csr_decode_window.launches == before + 1
+            assert torch.equal(got, ref.csr_decode_window(
+                tab, perm_s, perm_u, w0, nsl)), (cap, w0, nsl)
+            stop = min(w0 + nsl, cap)
+            if w0 < stop:
+                assert torch.equal(got[:stop - w0], dense[w0:stop])
+            per_slot += int((_tile_spans(tab, w0, nsl)
+                             > emit.CSR_WMAX).sum())
+        if cap >= k:        # strictly rising offsets: every tile staged
+            assert per_slot == 0
+        elif case == "paper_a50":   # ~2e4 saturated entries past the cap
+            assert per_slot > 0
+
+
+def test_csr_kernel_at_the_int32_cap(card):
+    # n = m = 50,000 all-overlapping regions: K = 2.5e9 > INT32_MAX, so
+    # at the cap INT32_MAX the last emitters' offsets saturate at the
+    # pads' INT32_MAX (the Koln windows' repeated-offset case); windows
+    # below it never select them
+    n = m = 50_000
+    rng = np.random.default_rng(13)
+    s_lo = rng.uniform(0, 1, n).astype(np.float32)
+    u_lo = rng.uniform(1, 2, m).astype(np.float32)
+    S = convert.regions_from_numpy(s_lo, s_lo + 3, card)
+    U = convert.regions_from_numpy(u_lo, u_lo + 3, card)
+    cap = 2 ** 31 - 1
+    perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+        S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], cap)[:5]
+    tab = emit.pack_emitter_tables(offs, counts, starts, n=n, m=m)
+    last = int(tab[0][tab[0] < cap].max())
+    for w0, stop in ((last - 1000, last + 3000), (cap - 3000, cap),
+                     ((1 << 30) - 7, (1 << 30) + 2100)):
+        got = emit.csr_decode_window(tab, perm_s, perm_u, w0, stop - w0)
+        torch.cuda.synchronize()
+        want = sbm._twopass_window(offs, counts, starts, perm_s, perm_u,
+                                   w0, stop)
+        assert bool((want >= 0).all())
+        assert torch.equal(got, want), w0
 
 
 @pytest.mark.parametrize("d", [1, 2])
