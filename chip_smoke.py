@@ -25,8 +25,12 @@ or the JAX package.  Phases, each of which must pass:
 7. d=2      the 2-D fig. 9 workload through ``backend="cuda"`` equals
             ``backend="torch"`` on the card;
 8. times    median of CUDA-event times over warm runs, for ``count()``
-            and ``pairs()`` end to end, each kernel alone and each plain
-            version, beside the card's name and power limit;
+            and ``pairs()`` end to end, each kernel and each plain
+            version, beside the card's name and power limit; K1 and K2
+            also alone (20 back-to-back raw launches over one event
+            pair), K2 also at fig. 12's alpha = 1 (K = 489,667, checked
+            bit-equal to plain), their TB/s and K2's tile, registers,
+            shared memory and spills (``cuobjdump``);
 9. bfm      ``count()`` of ``MatchSpec(algo="bfm")`` through K3 on fig. 9
             (K equal to the SBM count and to the plain per-subscription
             counts; the K3 tiles bit-equal to their plain version, also
@@ -51,11 +55,12 @@ or the JAX package.  Phases, each of which must pass:
             instance; K3's fig. 9 tiles take its d1 path, whose SASS
             instructions per pair (``cuobjdump`` of the built library)
             give the issue floor at fig. 9; its registers and spills;
-            K4 and K6 also alone (20 back-to-back raw launches over one
-            event pair), K4 at d = 2, the store ceiling (``fill_`` of
-            the mask's bytes), K6 on a 65,536-slot window, their TB/s,
-            and every K4/K6 instance's registers, shared memory and
-            spills (``cuobjdump``);
+            K4, K5 and K6 also alone (20 back-to-back raw launches over
+            one event pair), K4 at d = 2, the store ceiling (``fill_``
+            of the mask's bytes), K5 at tiles of 512, 1024 and 2048
+            slots, K6 on a 65,536-slot window and over K5's whole
+            [0, K), their TB/s, and every K4/K5/K6 instance's
+            registers, shared memory and spills (``cuobjdump``);
 14. planner the sparse-attention planner's ``block_windows`` at
             Zamba2-2.7B's plan (S = 32,768, 128-token blocks, window
             4096, one sink block) on the card, through K1 and K2: the
@@ -370,6 +375,18 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
     del S2, U2, out2, b_c, b_t
 
     # -- 8. times -----------------------------------------------------------
+    # K2 at the alpha = 1 of fig. 12's sweep: most emitters have count 0,
+    # so its tiles span thousands of uncompacted entries
+    S1, U1 = paper_workload(**{**fig9, "alpha": 1.0}, device=dev)
+    k_a1 = sbm.sbm_count_binary(S1, U1)
+    a1_args = sbm._twopass_phase1(S1.lo[:, 0], S1.hi[:, 0], U1.lo[:, 0],
+                                  U1.hi[:, 0], k_a1)[:5]
+    a1_args = (a1_args[4], a1_args[3], a1_args[2], a1_args[0], a1_args[1])
+    k2_a1_err = exact_err(emit.twopass_emit(*a1_args, max_pairs=k_a1),
+                          ref.twopass_emit(*a1_args, max_pairs=k_a1))
+    check(k2_a1_err == 0, f"K2 at alpha = 1 != plain (max err {k2_a1_err})")
+    print(f"[K2] alpha=1 N={S1.n + U1.n} K={k_a1}: bit-equal to plain")
+    del S1, U1
     times = {
         "count_e2e": time_ms(lambda: plan.count(S, U)),
         "pairs_e2e": time_ms(lambda: plan.pairs(S, U)),
@@ -379,7 +396,13 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
                                                 max_pairs=k_bin)),
         "k2_plain": time_ms(lambda: ref.twopass_emit(*emit_args,
                                                      max_pairs=k_bin)),
+        "k2_alpha1": time_ms(lambda: emit.twopass_emit(*a1_args,
+                                                       max_pairs=k_a1)),
     }
+    if dev == "cuda":
+        times.update(time_k1_k2(is_lo, is_upd, emit_args, k_bin, a1_args,
+                                k_a1))
+        print_k1_k2(times, k_bin, k_a1, is_lo.numel())
 
     T = is_lo.numel()
     E = n + m
@@ -410,6 +433,74 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
     return {"launches": launches, "kernels": kernels, "times": times,
             "koln_launches": koln_launches,
             "shapes": {"endpoints": T, "emitters": E, "K": k_bin}}
+
+
+def tbs(nbytes: float, ms: float) -> float:
+    """Terabytes a second of ``nbytes`` moved in ``ms``."""
+    return nbytes / (ms * 1e-3) / 1e12
+
+
+def raw_launch(fn, *args):
+    """``fn(*args, stream)`` once, checked, and a closure that repeats it
+    (a kernel's launch function called without its wrapper)."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    check(fn(*args, stream) == 0, f"{fn.__name__} refused the launch")
+    return lambda: fn(*args, stream)
+
+
+def time_k1_k2(is_lo, is_upd, emit_args, k, a1_args, k_a1) -> dict:
+    """K1 and K2 beside their wrappers' times: each launch function
+    called raw, 20 launches back to back (``time_back_to_back``); K2 at
+    fig. 9 and at alpha = 1."""
+    import torch
+    from repro_torch.kernels import _build
+    lib1, lib2 = _build.load("sbm_sweep"), _build.load("emit")
+    T = is_lo.numel()
+    out1 = torch.empty_like(is_lo)
+    sums = torch.empty(2 * (-(-T // lib1.sbm_sweep_tile())),
+                       dtype=torch.int32, device="cuda")
+    out2 = torch.empty((max(k, k_a1), 2), dtype=torch.int32, device="cuda")
+
+    def k2_raw(args, slots):
+        offs, counts, starts, perm_s, perm_u = args
+        return raw_launch(lib2.twopass_emit_launch, offs.data_ptr(),
+                          counts.data_ptr(), starts.data_ptr(),
+                          perm_s.data_ptr(), perm_u.data_ptr(),
+                          perm_s.shape[0], perm_u.shape[0], slots,
+                          out2.data_ptr())
+
+    return {
+        "k1_alone": time_back_to_back(raw_launch(
+            lib1.sbm_sweep_launch, is_lo.data_ptr(), is_upd.data_ptr(),
+            out1.data_ptr(), sums.data_ptr(), T)),
+        "k2_alone": time_back_to_back(k2_raw(emit_args, k)),
+        "k2_alpha1_alone": time_back_to_back(k2_raw(a1_args, k_a1)),
+    }
+
+
+def print_k1_k2(t: dict, k: int, k_a1: int, endpoints: int) -> None:
+    """K1's and K2's achieved rates (K1: 12 B an endpoint; K2: 8 B
+    written and a 4-byte partner read a slot), K2's tile and every K2
+    instance's registers, shared memory and spills (``cuobjdump``; the
+    dynamic shared memory from the tile: the owner array and the
+    window of three table rows)."""
+    from repro_torch.kernels import _build, emit
+    tile = _build.load("emit").twopass_emit_tile
+    t9, t1 = tile(k), tile(k_a1)
+    print(f"[K1] {endpoints} endpoints: {t['k1']!r} ms through the wrapper, "
+          f"{t['k1_alone']!r} ms alone ({tbs(12 * endpoints, t['k1_alone'])!r}"
+          f" TB/s of 12 B an endpoint)")
+    print(f"[K2] fig. 9 K={k} (tiles of {t9} slots): {t['k2']!r} ms through "
+          f"the wrapper, {t['k2_alone']!r} ms alone "
+          f"({tbs(12 * k, t['k2_alone'])!r} TB/s of 12 B a slot); alpha=1 "
+          f"K={k_a1} (tiles of {t1}): {t['k2_alpha1']!r} / "
+          f"{t['k2_alpha1_alone']!r} ms "
+          f"({tbs(12 * k_a1, t['k2_alpha1_alone'])!r} TB/s)")
+    for kname, fn in sorted(kernel_code("emit").items()):
+        print(f"[K2] {kname}: {resources(fn)}, static shared "
+              f"{fn.get('shared', 'not read')} B, dynamic shared "
+              f"{4 * t9 + 12 * emit.EMIT_WMAX} B at fig. 9")
 
 
 def exact_err(a, b) -> int:
@@ -672,6 +763,8 @@ def run_slice2(dev: str, fig9: dict, mask_wl: dict, koln_positions: int,
     if dev == "cuda":
         times.update(time_k4_k6(mask_args, mask2_args, k6_args))
         print_k4_k6(times, k4_bound, nm_mask, k6_args[4])
+        times.update(time_k5(k5_args, k_r, bl))
+        print_k5(times, k_r, bl)
     win = emit.stream_window(bl)
     # K5: the packed table and the permutations in, 8 B per slot out;
     # per slot a binary search over the window plus ~12 operations
@@ -718,14 +811,10 @@ def time_k4_k6(mask_args, mask2_args, k6_args) -> dict:
     65,536-slot window (``windows()``'s default chunk)."""
     import torch
     from repro_torch.kernels import _build, bfm, emit
-    stream = torch.cuda.current_stream().cuda_stream
+    raw = raw_launch
     lib4, lib6 = _build.load("bfm_mask"), _build.load("csr_decode")
     n, m = mask_args[0].shape[0], mask_args[2].shape[0]
     out4 = torch.empty((n, m), dtype=torch.bool, device="cuda")
-
-    def raw(fn, *args):
-        check(fn(*args, stream) == 0, f"{fn.__name__} refused the launch")
-        return lambda: fn(*args, stream)
 
     def k4_raw(args):
         return raw(lib4.bfm_mask_launch, *(x.data_ptr() for x in args),
@@ -753,12 +842,54 @@ def time_k4_k6(mask_args, mask2_args, k6_args) -> dict:
     }
 
 
+def time_k5(k5_args, k: int, bl: int) -> dict:
+    """K5 beside its wrapper's time: its launch function called raw, 20
+    launches back to back, at the default tile and at tiles of 512, 1024
+    and 2048 slots; and K6's kernel decoding the same [0, K)."""
+    import torch
+    from repro_torch.kernels import _build
+    tab, perm_s, perm_u = k5_args
+    out = torch.empty((k, 2), dtype=torch.int32, device="cuda")
+    lib5, lib6 = _build.load("emit_stream"), _build.load("csr_decode")
+
+    def k5_raw(block):
+        return raw_launch(lib5.emit_stream_launch, tab.data_ptr(),
+                          tab.shape[1], perm_s.data_ptr(), perm_u.data_ptr(),
+                          perm_s.shape[0], perm_u.shape[0], k, block,
+                          out.data_ptr())
+
+    t = {"k6_whole_alone": time_back_to_back(raw_launch(
+        lib6.csr_decode_launch, tab.data_ptr(), tab.shape[1],
+        perm_s.data_ptr(), perm_u.data_ptr(), perm_s.shape[0],
+        perm_u.shape[0], 0, k, out.data_ptr()))}
+    for block in sorted({bl, 512, 1024, 2048}):
+        key = "k5_alone" if block == bl else f"k5_alone_block{block}"
+        t[key] = time_back_to_back(k5_raw(block))
+    return t
+
+
+def print_k5(t: dict, k: int, bl: int) -> None:
+    """K5's achieved rate (8 B written and a 4-byte partner read a slot)
+    and every K5 instance's registers, shared memory (dynamic: the owner
+    array and the window of four table rows) and spills."""
+    from repro_torch.kernels import emit
+    print(f"[K5] fig. 9 K={k}: {t['k5']!r} ms through the wrapper, "
+          f"{t['k5_alone']!r} ms alone ({tbs(12 * k, t['k5_alone'])!r} TB/s "
+          f"of 12 B a slot); "
+          f"K6's kernel over the same [0, K): {t['k6_whole_alone']!r} ms "
+          f"alone")
+    for key in sorted(t):
+        if key.startswith("k5_alone_block"):
+            print(f"[K5] tiles of {key[14:]} slots alone: {t[key]!r} ms")
+    for kname, fn in sorted(kernel_code("emit_stream").items()):
+        print(f"[K5] {kname}: {resources(fn)}, static shared "
+              f"{fn.get('shared', 'not read')} B, dynamic shared "
+              f"{4 * bl + 16 * emit.EMIT_WMAX} B at tiles of {bl}")
+
+
 def print_k4_k6(t: dict, k4_bound, mask_bytes: int, k6_slots: int) -> None:
     """K4's and K6's achieved rates and each instance's registers, shared
     memory and spills (``cuobjdump`` of the built libraries)."""
-    def tbs(nbytes, ms):
-        return nbytes / (ms * 1e-3) / 1e12
-
     print(f"[K4] n*m = {mask_bytes} B: {t['k4']!r} ms through the wrapper, "
           f"{t['k4_alone']!r} ms alone ({tbs(mask_bytes, t['k4_alone'])!r} "
           f"TB/s); d = 2 {t['k4_d2']!r} / {t['k4_d2_alone']!r} ms; store "

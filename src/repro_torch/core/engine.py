@@ -106,7 +106,7 @@ class MatchSpec:
     p: int = 8                     # chunked-SBM segments
     ts: int = 256                  # BFM kernel K3 tile sizes
     tu: int = 256
-    block: int = 512               # streaming emit (K5) slots per CTA
+    block: int = 4096              # streaming emit (K5) slots per CTA
     emit_route: str = "auto"       # pass-2 route (kernels.ops)
     emit_budget: int | None = None  # emit L2 byte budget (None=default)
     device: str = "cuda"

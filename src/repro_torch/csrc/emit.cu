@@ -13,55 +13,51 @@
 // its update from perm_u[starts[e] + j]; a class-B emitter owns update
 // e - n and reads its subscription from perm_s[starts[e] + j].  A slot
 // whose rank is at or past the emitter's count (the saturated tail, or
-// t past K) gets the (-1, -1) pad.  Output is bit-identical to the plain
-// pass 2 (repro_torch.core.sbm._twopass_slots).
+// t past K, which the sentinel entry E with count 0 owns) gets the
+// (-1, -1) pad.  Output is bit-identical to the plain pass 2
+// (repro_torch.core.sbm._twopass_slots).
 //
 // The TPU kernel held all five tables in VMEM for the whole grid, which
 // capped it at ~5e5 regions under its 8 MiB budget.  Here the tables stay
-// in device memory and go through the L2 (50 MB): at N = 1e6 they are
-// ~16 MB, so the binary-search probes of neighbouring slots, which walk
-// the same path, hit in L2/L1.
+// in device memory, and the slots are decoded a tile at a time by the
+// tile decode of emit_tile.cuh: two 32-ary warp searches a tile find its
+// first and last owner, the tile's offsets are read once to mark each
+// run's first slot, and a max-scan gives every slot its owner.  The
+// uncompacted tables keep their zero-count emitters, so a tile may span
+// many entries (about 82 a 4096-slot tile at fig. 9, 1,000 a 512-slot
+// tile at overlap degree 1; spans past 16 tiles, as at degree 0.01, take
+// the decode's per-slot search).
 //
-// Bound on the card: bytes.  Every slot writes 8 B, one int2 store straight
-// into the (max_pairs, 2) buffer; at the paper's fig. 9 size (K ~ 5e7)
-// that is 400 MB, ~0.12 ms at 3.35 TB/s, against ~16 MB of tables read.
-// One thread per slot in a grid-stride loop with 64-bit slot arithmetic.
-#include <cuda_runtime.h>
-#include <cstdint>
+// The tile is the largest of 4096, 2048, ..., 256 slots that still gives
+// 4 CTAs an SM (pick_tile): 4096 at fig. 9 (K ~ 5e7, 12,207 tiles),
+// where fewer searches a slot pay; smaller tiles when K is small (512 at
+// overlap degree 1, K = 489,667), where a 4096-slot grid would leave SMs
+// idle.
+//
+// Bound on the card: bytes.  Every slot writes 8 B and gathers one 4-byte
+// partner; at the paper's fig. 9 size (K ~ 5e7) the 400 MB written take
+// ~0.12 ms at 3.35 TB/s, against ~16 MB of tables read.
+#include "emit_tile.cuh"
 
 namespace {
 
-constexpr int BLOCK = 256;
+constexpr int TILE_MAX = 4096;
+constexpr int TILE_MIN = 256;
+constexpr int CTAS_PER_SM = 4;
 
-__global__ void __launch_bounds__(BLOCK)
-twopass_emit_kernel(const int* __restrict__ offs,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ starts,
-                    const int* __restrict__ perm_s,
-                    const int* __restrict__ perm_u, int n, int m,
-                    long long max_pairs, int2* __restrict__ out) {
-  const int E = n + m;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long slot = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       slot < max_pairs; slot += stride) {
-    const int t = static_cast<int>(slot);  // max_pairs <= INT32_MAX
-    // largest e in [0, E] with offs[e] <= t (offs[0] == 0 <= t)
-    int lo = 0, hi = E;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (__ldg(offs + mid) <= t) lo = mid; else hi = mid - 1;
-    }
-    const int e = lo;
-    const int j = t - __ldg(offs + e);
-    const int cnt = e < E ? __ldg(counts + e) : 0;
-    int2 pair = make_int2(-1, -1);
-    if (j >= 0 && j < cnt) {
-      const int r = __ldg(starts + e) + j;
-      pair = e < n ? make_int2(e, __ldg(perm_u + r))
-                   : make_int2(__ldg(perm_s + r), e - n);
-    }
-    out[slot] = pair;
-  }
+// The largest tile, in slots, whose grid still gives every SM
+// CTAS_PER_SM CTAs (TILE_MIN if none does).
+cudaError_t pick_tile(long long max_pairs, int* tile) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int T = TILE_MAX;
+  while (T > TILE_MIN && (max_pairs + T - 1) / T < (long long)CTAS_PER_SM * sms)
+    T /= 2;
+  *tile = T;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -72,21 +68,28 @@ const char* twopass_emit_strerror(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out: int32 (max_pairs, 2) on the device.  Returns the CUDA error, 0 on
-// success.  max_pairs == 0 launches nothing.
+// The tile twopass_emit_launch takes for max_pairs slots on the current
+// device, or 0 on a CUDA error.
+int twopass_emit_tile(long long max_pairs) {
+  int T = 0;
+  return pick_tile(max_pairs, &T) == cudaSuccess ? T : 0;
+}
+
+// out: int32 (max_pairs, 2) on the device, 16-byte aligned.  Returns the
+// CUDA error, 0 on success.  max_pairs == 0 launches nothing.
 int twopass_emit_launch(const int* offs, const int* counts, const int* starts,
                         const int* perm_s, const int* perm_u, int n, int m,
                         long long max_pairs, int* out, void* stream) {
   if (max_pairs <= 0) return 0;
   if (max_pairs > 0x7fffffffLL || n <= 0 || m <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  long long blocks = (max_pairs + BLOCK - 1) / BLOCK;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  twopass_emit_kernel<<<(unsigned)blocks, BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      offs, counts, starts, perm_s, perm_u, n, m, max_pairs,
-      reinterpret_cast<int2*>(out));
-  return static_cast<int>(cudaGetLastError());
+  int T = 0;
+  const cudaError_t err = pick_tile(max_pairs, &T);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const emit_tile::Uncompacted tb{offs, counts, starts, n + m};
+  return static_cast<int>(emit_tile::launch(
+      tb, perm_s, perm_u, n, max_pairs, T, out,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

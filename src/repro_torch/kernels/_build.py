@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch/lib<name>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source builds
-anew).  Builds happen at first use, never at import: the CPU tests
-import every module on hosts with no ``nvcc`` and no card.
+(the hash covers the source, the headers it includes (``HEADERS``) and
+the flags, so an edited source or header builds anew).  Builds happen
+at first use, never at import: the CPU tests import every module on
+hosts with no ``nvcc`` and no card.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
 A missing card, a missing ``nvcc``, a failed compile or a failed load
@@ -37,6 +38,7 @@ SIGNATURES = {
     },
     "emit": {
         "twopass_emit_strerror": ((_I,), ctypes.c_char_p),
+        "twopass_emit_tile": ((_L,), _I),
         "twopass_emit_launch": ((_P, _P, _P, _P, _P, _I, _I, _L, _P, _P),
                                 _I),
     },
@@ -53,8 +55,7 @@ SIGNATURES = {
     },
     "emit_stream": {
         "emit_stream_strerror": ((_I,), ctypes.c_char_p),
-        "emit_stream_launch": ((_P, _L, _P, _P, _P, _I, _I, _L, _I, _I, _P,
-                                _P), _I),
+        "emit_stream_launch": ((_P, _L, _P, _P, _I, _I, _L, _I, _P, _P), _I),
     },
     "csr_decode": {
         "csr_decode_strerror": ((_I,), ctypes.c_char_p),
@@ -68,6 +69,9 @@ SIGNATURES = {
                                 _I, _I, _I, ctypes.c_float, _P), _I),
     },
 }
+
+# headers each source includes, hashed with it
+HEADERS = {"emit": ("emit_tile.cuh",), "emit_stream": ("emit_tile.cuh",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -85,7 +89,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join((CSRC / f).read_bytes()
+                   for f in (f"{name}.cu", *HEADERS.get(name, ())))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -8,19 +8,32 @@ partner is read from ``perm_u`` (class A, ``e < n``) or ``perm_s``
 output is bit-identical to the plain pass 2 (``core.sbm``).
 
 ``twopass_emit`` (K2, ``csrc/emit.cu``, the ``resident`` route)
-    Replaces ``kernels/emit.py:_emit_kernel``.  One thread per slot
-    binary-searches the uncompacted offsets in device memory; the five
-    tables (16 B per emitter) are served by the 50 MB L2.  Bound: bytes,
-    8 B written per slot (fig. 9, K ≈ 5e7: 400 MB, ≈0.12 ms).
+    Replaces ``kernels/emit.py:_emit_kernel``.  Reads the uncompacted
+    pass-1 tables in device memory by the tile decode of
+    ``csrc/emit_tile.cuh``, one CTA per tile of slots: two warps find
+    the tile's first and last owners by 32-ary searches of the offsets;
+    the tile's offsets are read once, and the last entry of each run of
+    equal offsets (zero-count emitters share their successor's) marks
+    its first slot in an owner array, which a max-scan fills in, so
+    every slot finds its emitter in O(1).  A tile that spans at most
+    ``EMIT_WMAX`` entries (every tile at fig. 9 and on Koln) reads the
+    owners' fields from a staged window, a larger one through L1, and
+    one that spans more than ``EMIT_PERSLOT_SPAN`` tiles' worth (long
+    zero-count runs, as at overlap degree 0.01) binary-searches per
+    slot.  The tile is the largest of ``EMIT_TILE_MAX``, /2, ...,
+    ``EMIT_TILE_MIN`` slots whose grid still gives every SM
+    ``EMIT_CTAS_PER_SM`` CTAs: 4096 at fig. 9, 512 at overlap degree 1
+    (K = 489,667), 256 for the planner's few thousand block pairs.
+    Bound: bytes, 8 B written per slot (fig. 9, K ≈ 5e7: 400 MB,
+    ≈0.12 ms).
 
 ``twopass_emit_streaming`` (K5, ``csrc/emit_stream.cu``, ``streaming``)
-    Replaces ``_emit_stream_kernel``.  Reads the compacted packed table
-    (``pack_emitter_tables``): a tile of ``bl`` slots selects at most
-    ``bl + 1`` consecutive entries, so one CTA stages a
-    ``stream_window(bl)``-entry window of it in shared memory and
-    searches there; only the two permutations are gathered from device
-    memory.  Window bases come from one library searchsorted of the
-    tiles' first slots, as the reference computes them.  Same bound.
+    Replaces ``_emit_stream_kernel``.  The same tile decode over the
+    compacted packed table (``pack_emitter_tables``), in tiles of
+    ``lane_pad(block)`` slots (``DEF_BLOCK`` = 4096, the fastest tile
+    at fig. 9): a tile selects at most that many + 1 consecutive
+    entries.  Each CTA searches its own tile's entries; there are no
+    window bases.  Same bound.
 
 ``csr_decode_window`` (K6, ``csrc/csr_decode.cu``, ``csr``)
     Replaces ``_csr_decode_kernel``.  Slots ``[w0, w0 + nslots)`` of
@@ -54,9 +67,17 @@ from . import _build, ref
 
 _INT32_MAX = 2 ** 31 - 1
 PAD_OFF = _INT32_MAX   # > every slot id: pad entries are never selected
-DEF_BLOCK = 512        # K5 slots per CTA tile
+DEF_BLOCK = 4096       # K5 slots per CTA tile
+# the tile decode of K2 and K5 (``csrc/emit_tile.cuh``: WMAX,
+# PERSLOT_SPAN): the most entries a tile stages, and the span, in tiles,
+# past which it searches per slot; K2's tile rule (``csrc/emit.cu``:
+# TILE_MAX, TILE_MIN, CTAS_PER_SM)
+EMIT_WMAX = 257
+EMIT_PERSLOT_SPAN = 16
+EMIT_TILE_MAX, EMIT_TILE_MIN, EMIT_CTAS_PER_SM = 4096, 256, 4
 # a tile of B slots selects <= B + 1 consecutive compacted entries; +128
-# covers aligning the window base down to a multiple of 128
+# covers aligning a window base down to a multiple of 128 (the
+# reference's windows; the packed table stays at least this wide)
 STREAM_WIN_EXTRA = 256
 # K6's slots per CTA tile and the most table entries a tile stages
 # (``csrc/csr_decode.cu``: TILE, WMAX)
@@ -174,7 +195,10 @@ def twopass_emit_streaming(tab, perm_s, perm_u, *, max_pairs: int,
     """K5: the K2 buffer from the packed table, ``(max_pairs, 2)`` int32.
 
     ``tab`` comes from ``pack_emitter_tables`` with ``min_len >=
-    stream_window(lane_pad(block))``.
+    stream_window(lane_pad(block))``.  ``block`` is rounded up to a
+    multiple of 128, ``bl``: the slots of one CTA tile, at ``4·bl +
+    4112`` bytes of shared memory (``bl`` up to 56,960; a larger tile is
+    refused at the launch).
     """
     if max_pairs == 0:
         return _empty_pairs(tab.device)
@@ -193,18 +217,12 @@ def twopass_emit_streaming(tab, perm_s, perm_u, *, max_pairs: int,
         raise ValueError(f"packed table width {e_pad} is narrower than the "
                          f"window {win}; pack with min_len >= "
                          f"stream_window(lane_pad({block}))")
-    tiles = -(-max_pairs // bl)
-    t0 = torch.arange(tiles, dtype=torch.int32, device=tab.device) * bl
-    k0 = torch.searchsorted(tab[0], t0, right=True) - 1
-    base = (k0.clamp_(min=0) // 128 * 128).clamp_(max=e_pad - win)
-    base = base.to(torch.int32)
     out = torch.empty((max_pairs, 2), dtype=torch.int32, device=tab.device)
     lib = _build.load("emit_stream")
     rc = _build.launch(
         tab.device, lib.emit_stream_launch, tab.data_ptr(), e_pad,
-        base.data_ptr(), perm_s.data_ptr(), perm_u.data_ptr(),
-        perm_s.shape[0], perm_u.shape[0], max_pairs, bl, win,
-        out.data_ptr())
+        perm_s.data_ptr(), perm_u.data_ptr(), perm_s.shape[0],
+        perm_u.shape[0], max_pairs, bl, out.data_ptr())
     _build.check(lib, "emit_stream", rc)
     twopass_emit_streaming.launches += 1
     return out

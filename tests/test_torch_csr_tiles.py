@@ -25,9 +25,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import sbm as jsbm  # noqa: E402
+
+from torch_emit_tables import zero_run_tables  # noqa: E402
 
 from repro_torch.core import paper_workload  # noqa: E402
 from repro_torch.core import sbm as tsbm  # noqa: E402
@@ -297,3 +300,282 @@ def test_tile_decode_above_2_30_and_at_the_int32_cap(n_reg, cap):
         np.testing.assert_array_equal(
             got, ref.csr_decode_window(tab, perm_s, perm_u, w0,
                                        stop - w0).numpy())
+
+
+# -- K2 and K5: the tile decode of csrc/emit_tile.cuh -----------------------
+
+EMIT_BLOCK = 256        # emit_tile.cuh: BLOCK
+SMS = 132               # an H100's SMs, for K2's tile rule
+
+
+class Uncompacted:
+    """K2's tables: entry k is emitter k, entry E the count-0 sentinel."""
+
+    def __init__(self, offs, counts, starts):
+        self.offs = offs.astype(np.int64)
+        self.E = counts.size
+        self.cnt = np.append(counts, 0).astype(np.int64)
+        self.start = np.append(starts, 0).astype(np.int64)
+        self.id = np.arange(self.E + 1, dtype=np.int64)
+
+
+class Packed:
+    """K5's packed table: rows offset, count, start, id."""
+
+    def __init__(self, tab):
+        self.offs, self.cnt, self.start, self.id = tab.astype(np.int64)
+
+
+def k2_tile(max_pairs, sms=SMS):
+    """emit.cu's pick_tile: the largest of 4096, 2048, ..., 256 slots
+    whose grid gives every SM 4 CTAs."""
+    T = emit.EMIT_TILE_MAX
+    while T > emit.EMIT_TILE_MIN and -(-max_pairs // T) < (
+            emit.EMIT_CTAS_PER_SM * sms):
+        T //= 2
+    return T
+
+
+def register_scan(cells, nt):
+    """The kernel's max-scan of cells[0, nt): PER cells a thread in
+    registers, a shuffle scan of the thread totals per warp, then the
+    warps' totals and the passes before; BLOCK·PER cells a pass.  Cells
+    past nt hold whatever they held; they only raise cells past nt."""
+    T = cells.size
+    cells = cells.copy()
+    lane = np.arange(32)
+    carry = 0
+    for c0 in range(0, nt, EMIT_BLOCK * PER):
+        v = np.zeros(EMIT_BLOCK * PER, np.int64)
+        mine = min(T - c0, EMIT_BLOCK * PER)     # threads with lo < T
+        v[:mine] = cells[c0:c0 + mine]
+        v = np.maximum.accumulate(v.reshape(EMIT_BLOCK, PER), axis=1)
+        run = v[:, -1].reshape(EMIT_BLOCK // WARP, WARP)
+        o = 1
+        while o < WARP:
+            y = np.roll(run, o, axis=1)           # __shfl_up_sync by o
+            run = np.where(lane >= o, np.maximum(run, y), run)
+            o <<= 1
+        before = np.where(lane == 0, 0, np.roll(run, 1, axis=1))
+        warp_tot = run[:, -1]
+        prev = np.concatenate([[0], np.maximum.accumulate(warp_tot)[:-1]])
+        before = np.maximum(np.maximum(before, prev[:, None]), carry)
+        v = np.maximum(v, before.reshape(-1, 1)).reshape(-1)
+        cells[c0:c0 + mine] = v[:mine]
+        carry = max(carry, int(warp_tot.max()))
+    return cells
+
+
+def emit_tile(tb, perm_s, perm_u, max_pairs, tile, T, rng):
+    """One tile as emit_tiles_kernel writes it, and its path: "staged"
+    (at most EMIT_WMAX entries), "streamed" (read through L1) or
+    "per_slot" (a span past EMIT_PERSLOT_SPAN tiles)."""
+    n = perm_s.size
+    t0 = tile * T
+    nt = min(T, max_pairs - t0)
+    hi = tb.offs.size - 1
+    k0 = search_warp(tb.offs, 0, hi, t0)
+    k1 = search_warp(tb.offs, 0, hi, t0 + nt - 1)
+    W = k1 - k0 + 1
+    t = np.arange(t0, t0 + nt, dtype=np.int64)
+    if W > emit.EMIT_PERSLOT_SPAN * T:
+        k = search_thread(tb.offs, k0, k1, t)
+        return slot_pairs(t, tb.offs[k], tb.cnt[k], tb.start[k], tb.id[k],
+                          n, perm_s, perm_u), "per_slot"
+    # the owner array's cells past nt are stale shared memory
+    cells = rng.integers(0, 1 << 31, T)
+    cells[:nt] = 0
+    x = np.arange(1, W)
+    o = tb.offs[k0 + x]
+    nxt = tb.offs[np.minimum(k0 + x + 1, k1)]
+    last = (x == W - 1) | (nxt != o)         # the last entry of each run
+    pos = o[last] - t0
+    assert ((pos >= 1) & (pos < nt)).all()
+    assert np.unique(pos).size == pos.size   # plain stores: one per cell
+    cells[pos] = x[last]
+    k = k0 + register_scan(cells, nt)[:nt]
+    path = "staged" if W <= emit.EMIT_WMAX else "streamed"
+    return slot_pairs(t, tb.offs[k], tb.cnt[k], tb.start[k], tb.id[k], n,
+                      perm_s, perm_u), path
+
+
+def emit_tiles(tb, perm_s, perm_u, max_pairs, T, *, tiles=None):
+    """Slots of ``tiles`` (default all), one CTA per tile: {tile: rows}
+    and the number of tiles that took each path."""
+    rng = np.random.default_rng(max_pairs)
+    rows, paths = {}, {"staged": 0, "streamed": 0, "per_slot": 0}
+    for tile in range(-(-max_pairs // T)) if tiles is None else tiles:
+        rows[tile], path = emit_tile(tb, perm_s, perm_u, max_pairs, tile,
+                                     T, rng)
+        paths[path] += 1
+    return rows, paths
+
+
+def _join(rows):
+    return np.concatenate([rows[t] for t in sorted(rows)])
+
+
+def _regions(alpha, n_total):
+    S, U = paper_workload(42, n_total, alpha, device="cpu")
+    return [x[:, 0].numpy() for x in (S.lo, S.hi, U.lo, U.hi)]
+
+
+# fig. 12's overlap sweep at N = 1e6 (alpha 1: K = 489,667 and tiles of
+# several thousand entries; alpha 0.01: K = 10,449, tiles of 1e5 and
+# more), fig. 9's alpha at a cut N, and the ties table
+EMIT_CASES = {"a100": lambda: _regions(100.0, 6_000),
+              "a1": lambda: _regions(1.0, 1_000_000),
+              "a0.01": lambda: _regions(0.01, 1_000_000), "ties": _ties}
+
+
+@functools.lru_cache(maxsize=None)
+def _emit_k(case):
+    arrs = [torch.from_numpy(a.copy()) for a in EMIT_CASES[case]()]
+    return int(tsbm._twopass_phase1(*arrs, 1)[3].sum(dtype=torch.int64))
+
+
+def _emit_caps(k):
+    """max_pairs: 1, K // 3, an odd cap, K and K + 100."""
+    return sorted({1, max(k // 3, 1), 2 * (k // 4) + 1, k, k + 100})
+
+
+@functools.lru_cache(maxsize=None)
+def _emit_dense(case):
+    """The JAX package's dense pass 2 at max_pairs = K + 100; a buffer of
+    max_pairs <= K + 100 slots is its prefix."""
+    arrs = EMIT_CASES[case]()
+    return np.asarray(jsbm._twopass_emit(
+        *[jnp.asarray(a) for a in arrs], max_pairs=_emit_k(case) + 100)[0])
+
+
+def _emit_tables(case, max_pairs):
+    arrs = EMIT_CASES[case]()
+    n, m = arrs[0].size, arrs[2].size
+    perm_s, perm_u, starts, counts, offs = tsbm._twopass_phase1(
+        *[torch.from_numpy(a.copy()) for a in arrs], max_pairs)[:5]
+    tab = emit.pack_emitter_tables(offs, counts, starts, n=n, m=m,
+                                   min_len=emit.stream_window(2048))
+    return (offs, counts, starts, perm_s, perm_u), tab
+
+
+@pytest.mark.parametrize("case", sorted(EMIT_CASES))
+def test_emit_tile_decode_equals_plain_and_reference(case):
+    """K2's decode of the uncompacted tables (its own tile rule, and
+    tiles of 4096) and K5's of the packed table (tiles of 512 and 4096),
+    against the plain pass 2, the plain packed decode and the JAX
+    package's dense pass 2."""
+    k = _emit_k(case)
+    dense = _emit_dense(case)
+    paths = {"staged": 0, "streamed": 0, "per_slot": 0}
+    for cap in _emit_caps(k):
+        (offs, counts, starts, perm_s, perm_u), tab = _emit_tables(case, cap)
+        ps, pu = perm_s.numpy(), perm_u.numpy()
+        plain = ref.twopass_emit(offs, counts, starts, perm_s, perm_u,
+                                 max_pairs=cap).numpy()
+        np.testing.assert_array_equal(plain, dense[:cap])
+        tb = Uncompacted(offs.numpy(), counts.numpy(), starts.numpy())
+        for T in sorted({k2_tile(cap), emit.EMIT_TILE_MAX}):
+            rows, took = emit_tiles(tb, ps, pu, cap, T)
+            np.testing.assert_array_equal(_join(rows), plain,
+                                          err_msg=f"{cap} {T}")
+            paths = {p: paths[p] + took[p] for p in paths}
+        np.testing.assert_array_equal(
+            ref.twopass_emit_streaming(tab, perm_s, perm_u,
+                                       max_pairs=cap).numpy(), plain)
+        for T in (512, 4096):
+            rows, took = emit_tiles(Packed(tab.numpy()), ps, pu, cap, T)
+            assert took["per_slot"] == 0   # a K5 tile spans <= T + 1
+            np.testing.assert_array_equal(_join(rows), plain,
+                                          err_msg=f"{cap} {T}")
+    # fig. 9's density stages every K2 tile; at overlap degree 1 they
+    # span thousands of entries (read through L1); at 0.01 a tile spans
+    # half the table, which the per-slot search takes
+    want = {"a100": "staged", "ties": "staged", "a1": "streamed",
+            "a0.01": "per_slot"}[case]
+    assert paths[want] > 0, paths
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_emit_tile_decode_on_zero_runs(seed):
+    counts, starts, perm_s, perm_u, k = zero_run_tables(seed)
+    n, m = perm_s.size, perm_u.size
+    tc, ts = torch.from_numpy(counts), torch.from_numpy(starts)
+    p_s, p_u = torch.from_numpy(perm_s), torch.from_numpy(perm_u)
+    for cap in _emit_caps(k):
+        incl = torch.cumsum(tc, 0, dtype=torch.int64).clamp_(max=cap)
+        offs = torch.cat([torch.zeros(1, dtype=torch.int32),
+                          incl.to(torch.int32)])
+        plain = ref.twopass_emit(offs, tc, ts, p_s, p_u,
+                                 max_pairs=cap).numpy()
+        tb = Uncompacted(offs.numpy(), counts, starts)
+        # 2048: the tile whose first or last slot starts a run; 128: the
+        # run inside a tile spans more than 16 tiles (per slot)
+        for T in (k2_tile(cap), 2048, 128):
+            got, _ = emit_tiles(tb, perm_s, perm_u, cap, T)
+            np.testing.assert_array_equal(_join(got), plain,
+                                          err_msg=f"{cap} {T}")
+        tab = emit.pack_emitter_tables(offs, tc, ts, n=n, m=m)
+        for T in (128, 512):
+            got, _ = emit_tiles(Packed(tab.numpy()), perm_s, perm_u, cap, T)
+            np.testing.assert_array_equal(_join(got), plain,
+                                          err_msg=f"{cap} {T}")
+        if cap >= k:                          # slots past K: the sentinel
+            assert (plain[k:] == -1).all() and (plain[:k] >= 0).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _all_overlapping(n_reg=50_000):
+    """All-overlapping regions, K = n_reg²: at 50,000, K = 2.5e9 passes
+    INT32_MAX."""
+    rng = np.random.default_rng(12)
+    s_lo = rng.uniform(0, 1, n_reg).astype(np.float32)
+    u_lo = rng.uniform(1, 2, n_reg).astype(np.float32)
+    return s_lo, s_lo + 3, u_lo, u_lo + 3
+
+
+def test_emit_tile_decode_at_the_int32_cap():
+    """max_pairs = INT32_MAX on K = 2.5e9: the last tile's t0 + T passes
+    INT32_MAX, its last slot is INT32_MAX - 1, and the offsets of the last
+    emitters saturate at max_pairs; tiles around 2^30 and the last two,
+    on both tables."""
+    arrs = [torch.from_numpy(a) for a in _all_overlapping()]
+    n = arrs[0].shape[0]
+    cap = INT32_MAX
+    perm_s, perm_u, starts, counts, offs = tsbm._twopass_phase1(*arrs,
+                                                                cap)[:5]
+    tab = emit.pack_emitter_tables(offs, counts, starts, n=n, m=n)
+    ps, pu = perm_s.numpy(), perm_u.numpy()
+    for table, T in ((Uncompacted(offs.numpy(), counts.numpy(),
+                                  starts.numpy()), k2_tile(cap)),
+                     (Packed(tab.numpy()), 512), (Packed(tab.numpy()), 4096)):
+        ntiles = -(-cap // T)
+        assert (ntiles - 1) * T + T > INT32_MAX
+        mid = (1 << 30) // T
+        rows, _ = emit_tiles(table, ps, pu, cap, T,
+                             tiles=[mid - 1, mid, ntiles - 2, ntiles - 1])
+        for tile, got in rows.items():
+            t0 = tile * T
+            stop = min(t0 + T, cap)
+            want = tsbm._twopass_window(offs, counts, starts, perm_s, perm_u,
+                                        t0, stop).numpy()
+            assert (want >= 0).all()
+            np.testing.assert_array_equal(got, want, err_msg=str(tile))
+
+
+def test_twopass_offsets_past_2_30_are_the_clamped_int64_cumsum():
+    """ROADMAP Queue 3 item A, pinned: at max_pairs = INT32_MAX on
+    K = 2.5e9 the reference's saturating int32 scan (``core/sbm.py``'s
+    ``min(a + b, lim)``) wraps where two partial sums add past
+    INT32_MAX; the port's offsets are the int64 cumsum clamped at the
+    cap, the offsets K2 and K5 read.  The reference's negative entries
+    are recorded as found (57,051), not compared with the port's."""
+    arrs = _all_overlapping()
+    cap = INT32_MAX
+    got = tsbm._twopass_phase1(*[torch.from_numpy(a) for a in arrs], cap)
+    counts, offs = got[3].numpy(), got[4].numpy()
+    want = np.minimum(np.cumsum(counts, dtype=np.int64), cap)
+    np.testing.assert_array_equal(offs[1:], want)
+    assert offs[0] == 0 and (np.diff(offs.astype(np.int64)) >= 0).all()
+    j_offs = np.asarray(jax.jit(jsbm._twopass_phase1, static_argnums=4)(
+        *[jnp.asarray(a) for a in arrs], cap)[4])
+    assert int((j_offs < 0).sum()) == 57_051

@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_emit_tables import zero_run_tables  # noqa: E402
+
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import MatchSpec, build_plan, paper_workload  # noqa: E402
 from repro_torch.core import sbm  # noqa: E402
@@ -62,22 +64,67 @@ def test_sweep_kernel_matches_plain(card, T):
     assert torch.equal(got, ref.sbm_sweep(is_lo, is_upd))
 
 
-@pytest.mark.parametrize("case", ["paper_a50", "paper_a0.5", "ties"])
-def test_emit_kernel_matches_plain(card, case):
+def _workload(card, case):
+    """Regions of a card-test case: the ties table, or ``paper_a<alpha>``
+    at N = 60,000, or ``paper_a<alpha>_2e5`` at N = 2e5 (at alpha 1 and
+    0.01 most emitters have count 0, so K2's tiles span more than
+    ``emit.EMIT_WMAX`` entries; at 0.01 more than ``EMIT_PERSLOT_SPAN``
+    tiles' worth, the per-slot search)."""
     if case == "ties":
-        S, U = _ties(card)
-    else:
-        S, U = paper_workload(4, 60_000, float(case[7:]), device=card)
-    k = sbm.sbm_count_binary(S, U)
-    for max_pairs in sorted({1, max(k // 3, 1), k, k + 100}):
-        perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
-            S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], max_pairs)[:5]
-        t = (offs, counts, starts, perm_s, perm_u)
+        return _ties(card)
+    alpha, _, big = case[7:].partition("_")
+    return paper_workload(4, 200_000 if big else 60_000, float(alpha),
+                          device=card)
+
+
+def _zero_run_tables(card, seed):
+    """``torch_emit_tables.zero_run_tables`` on the card."""
+    *tables, k = zero_run_tables(seed)
+    return (*(torch.from_numpy(x).to(card) for x in tables), k)
+
+
+def _emit_tables(card, case, max_pairs):
+    """(offs, counts, starts, perm_s, perm_u) at ``max_pairs``."""
+    if case.startswith("zero_runs"):
+        counts, starts, perm_s, perm_u, _ = _zero_run_tables(
+            card, int(case[-1]))
+        incl = torch.cumsum(counts, 0, dtype=torch.int64).clamp_(
+            max=max_pairs)
+        offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=card),
+                          incl.to(torch.int32)])
+        return offs, counts, starts, perm_s, perm_u
+    S, U = _workload(card, case)
+    perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+        S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], max_pairs)[:5]
+    return offs, counts, starts, perm_s, perm_u
+
+
+def _emit_k(card, case):
+    if case.startswith("zero_runs"):
+        return _zero_run_tables(card, int(case[-1]))[-1]
+    return sbm.sbm_count_binary(*_workload(card, case))
+
+
+EMIT_CASES = ["paper_a50", "paper_a0.5", "ties", "paper_a1_2e5",
+              "paper_a0.01_2e5", "zero_runs0", "zero_runs1"]
+
+
+@pytest.mark.parametrize("case", EMIT_CASES)
+def test_emit_kernel_matches_plain(card, case):
+    k = _emit_k(card, case)
+    for max_pairs in sorted({1, max(k // 3, 1), 2 * (k // 4) + 1, k,
+                             k + 100}):
+        t = _emit_tables(card, case, max_pairs)
         before = emit.twopass_emit.launches
         got = emit.twopass_emit(*t, max_pairs=max_pairs)
         torch.cuda.synchronize()
         assert emit.twopass_emit.launches == before + 1
         assert torch.equal(got, ref.twopass_emit(*t, max_pairs=max_pairs))
+        # K5 on the same tables writes the same buffer
+        tab = emit.pack_emitter_tables(*t[:3], n=t[3].shape[0],
+                                       m=t[4].shape[0])
+        assert torch.equal(emit.twopass_emit_streaming(
+            tab, t[3], t[4], max_pairs=max_pairs), got)
     before = emit.twopass_emit.launches
     assert tuple(emit.twopass_emit(*t, max_pairs=0).shape) == (0, 2)
     assert emit.twopass_emit.launches == before
@@ -195,20 +242,19 @@ def test_bfm_kernels_match_plain(card, n, m, ts, tu, pad, d, values):
 
 @pytest.mark.parametrize("case", ["paper_a50", "paper_a0.5", "ties"])
 def test_stream_and_csr_kernels_match_plain(card, case):
-    if case == "ties":
-        S, U = _ties(card)
-    else:
-        S, U = paper_workload(4, 60_000, float(case[7:]), device=card)
+    S, U = _workload(card, case)
     k = sbm.sbm_count_binary(S, U)
     rng = np.random.default_rng(5)
-    for max_pairs in sorted({1, max(k // 3, 1), k, k + 100}):
+    for max_pairs in sorted({1, max(k // 3, 1), 2 * (k // 4) + 1, k,
+                             k + 100}):
         perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
             S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], max_pairs)[:5]
         dense = ref.twopass_emit(offs, counts, starts, perm_s, perm_u,
                                  max_pairs=max_pairs)
         tab = emit.pack_emitter_tables(offs, counts, starts, n=S.n, m=U.n,
-                                       min_len=emit.stream_window(4096))
-        for block in (128, 512, 2048, 4096):   # 4096: > 48 KB of window
+                                       min_len=emit.stream_window(56_960))
+        # 11,520 and 56,960 (the largest tile): > 48 KB of shared memory
+        for block in (100, 128, 384, 512, 1000, 2048, 4096, 11_520, 56_960):
             before = emit.twopass_emit_streaming.launches
             got = emit.twopass_emit_streaming(tab, perm_s, perm_u,
                                               max_pairs=max_pairs,
@@ -413,6 +459,12 @@ def test_new_kernel_wrappers_reject_bad_tensors(card):
     tab = torch.zeros((4, 128), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="narrower"):
         emit.twopass_emit_streaming(tab, perm, perm, max_pairs=5)
+    # a tile of 57,088 slots needs more than 227 KB of shared memory
+    wide = torch.zeros((4, emit.stream_window(57_088)), dtype=torch.int32,
+                       device=card)
+    with pytest.raises(RuntimeError, match="emit_stream"):
+        emit.twopass_emit_streaming(wide, perm, perm, max_pairs=5,
+                                    block=57_088)
     with pytest.raises(ValueError, match="packed"):
         emit.csr_decode_window(tab[:3], perm, perm, 0, 4)
     with pytest.raises(ValueError, match="int32"):
