@@ -28,9 +28,12 @@ or the JAX package.  Phases, each of which must pass:
             and ``pairs()`` end to end, each kernel and each plain
             version, beside the card's name and power limit; K1 and K2
             also alone (20 back-to-back raw launches over one event
-            pair), K2 also at fig. 12's alpha = 1 (K = 489,667, checked
-            bit-equal to plain), their TB/s and K2's tile, registers,
-            shared memory and spills (``cuobjdump``);
+            pair), K1 with L2 hot and cold and at tiles of 2048, 4096,
+            8192 and 16384 endpoints (each checked bit-equal), through its
+            wrapper at Koln and at the planner's T = 1,024 and 16,384,
+            K2 also at fig. 12's alpha = 1 (K = 489,667, checked
+            bit-equal to plain), their TB/s, K2's tile, and K1's and
+            K2's registers, shared memory and spills (``cuobjdump``);
 9. bfm      ``count()`` of ``MatchSpec(algo="bfm")`` through K3 on fig. 9
             (K equal to the SBM count and to the plain per-subscription
             counts; the K3 tiles bit-equal to their plain version, also
@@ -78,6 +81,9 @@ or the JAX package.  Phases, each of which must pass:
             efficient backend) at the phase-15 Zamba2 shape; K7's
             achieved TFLOP/s, the tensor-core design its bf16 path ran
             (HMMA/HGMMA in its SASS) and its registers and spills.
+17. host    the host time of K1's, K2's and K6's wrappers at fig. 9,
+            split into the steps of their call path (median µs of 2,000
+            calls each, ``host_phase``).
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -87,6 +93,8 @@ that line; so does a host without a CUDA device.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import math
 import re
@@ -142,13 +150,14 @@ def smi(query: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_code(lib: str) -> dict:
-    """The kernels of the built library ``lib`` as ``cuobjdump`` reads
-    them: {mangled name: {"sass": [instruction lines], "regs", "stack",
-    "local", "shared"}} (the last four in registers and bytes)."""
+def kernel_code(lib: str, path: Path | None = None) -> dict:
+    """The kernels of the built library ``lib`` (or of the library file
+    ``path``) as ``cuobjdump`` reads them: {mangled name: {"sass":
+    [instruction lines], "regs", "stack", "local", "shared"}} (the last
+    four in registers and bytes)."""
     from repro_torch.kernels import _build
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    path = str(_build._target(lib))
+    path = str(path or _build._target(lib))
 
     def dump(flag):
         return subprocess.run([tool, flag, path], capture_output=True,
@@ -308,6 +317,8 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
               f"koln K {k_koln} != {expect_k['koln']}")
     koln_launches = sweep.sbm_sweep.launches - before
     print(f"[koln] N={SK.n + UK.n} K={k_koln} K1 launches={koln_launches}")
+    koln_flags = sbm._endpoint_stream(SK.lo[:, 0], SK.hi[:, 0], UK.lo[:, 0],
+                                      UK.hi[:, 0])
     del SK, UK, plan_k
 
     # -- 5. the main path, launch counters zeroed just before ---------------
@@ -402,7 +413,9 @@ def run(dev: str, fig9: dict, koln_positions: int, trunc: int,
     if dev == "cuda":
         times.update(time_k1_k2(is_lo, is_upd, emit_args, k_bin, a1_args,
                                 k_a1))
+        times.update(time_k1_wrapper(koln_flags))
         print_k1_k2(times, k_bin, k_a1, is_lo.numel())
+    del koln_flags
 
     T = is_lo.numel()
     E = n + m
@@ -449,17 +462,118 @@ def raw_launch(fn, *args):
     return lambda: fn(*args, stream)
 
 
+# K1's tile sizes timed beside its default, as (SBM_SWEEP_BLOCK threads,
+# SBM_SWEEP_ITEMS endpoints a thread) of csrc/sbm_sweep.cu: tiles of
+# 2048, 4096, 8192 and 16384 endpoints
+K1_SHAPES = ((256, 8), (256, 16), (256, 32), (512, 32))
+# K1 with cold L2: rotate over enough copies of its inputs, output and
+# scratch that each launch's were evicted (the card's L2 is 50 MB)
+K1_COLD_BYTES = 100e6
+
+
+def k1_variants(shapes=K1_SHAPES) -> dict:
+    """K1's library built at each (threads, endpoints a thread) of
+    ``shapes`` (one ``nvcc`` each, all started together, into the build
+    directory), for timing its tile sizes: {tile: (library, path)}.  The
+    tile of the library ``_build`` loads, csrc/sbm_sweep.cu's default,
+    is not built again."""
+    from repro_torch.kernels import _build
+    default = _build.load("sbm_sweep")
+    libs = {default.const["sbm_sweep_tile"]:
+            (default, _build._target("sbm_sweep"))}
+    nvcc, jobs = _build._nvcc(), {}
+    for block, items in shapes:
+        if block * items in libs:
+            continue
+        path = _build.BUILD_DIR / f"libsbm_sweep_{block}x{items}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, f"-DSBM_SWEEP_BLOCK={block}",
+               f"-DSBM_SWEEP_ITEMS={items}", "-o", str(path),
+               str(_build.CSRC / "sbm_sweep.cu")]
+        jobs[path] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+    try:
+        for path, job in jobs.items():
+            out, _ = job.communicate()
+            check(job.returncode == 0, f"nvcc of {path.name} failed:\n{out}")
+            lib = _build._open("sbm_sweep", path)
+            libs.setdefault(lib.const["sbm_sweep_tile"], (lib, path))
+    finally:
+        for job in jobs.values():      # never leave nvcc running
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+    return libs
+
+
+def time_k1(is_lo, is_upd) -> dict:
+    """K1 alone at each tile size (``k1_variants``): its launch function
+    (the scratch memset and the kernel) called raw, 20 launches back to
+    back, with L2 hot (one set of arrays) and cold (launches rotating
+    over copies of the flags, output and scratch past
+    ``K1_COLD_BYTES``)."""
+    import torch
+    from repro_torch.kernels import sbm_sweep as sweep
+    T = is_lo.numel()
+    stream = torch.cuda.current_stream().cuda_stream
+    t = {}
+    for tile, (lib, path) in sorted(k1_variants().items()):
+        for kname, fn in sorted(kernel_code("sbm_sweep", path).items()):
+            inst = "vector" if "ILb1E" in kname else "scalar"
+            print(f"[K1] tiles of {tile}, {inst} instance: {resources(fn)}, "
+                  f"static shared {fn.get('shared', 'not read')} B")
+        sw = sweep.scratch_words(T, tile)      # the wrapper's layout
+        copies = math.ceil(K1_COLD_BYTES / (4 * (3 * T + sw))) + 1
+        sets = [(is_lo.clone(), is_upd.clone(),
+                 torch.empty(sw + T, dtype=torch.int32, device="cuda"))
+                for _ in range(copies)]
+        calls = []
+        for lo, up, buf in sets:
+            args = (lo.data_ptr(), up.data_ptr(), buf.data_ptr() + 4 * sw,
+                    buf.data_ptr(), T)
+            check(lib.sbm_sweep_launch(*args, stream) == 0,
+                  f"{path.name} refused the launch")
+            torch.cuda.synchronize()
+            check(torch.equal(buf[sw:], sets[0][2][sw:]),
+                  f"{path.name}: copies disagree")
+            calls.append(functools.partial(lib.sbm_sweep_launch, *args,
+                                           stream))
+        check(torch.equal(sets[0][2][sw:], sweep.sbm_sweep(is_lo, is_upd)),
+              f"K1 in tiles of {tile} != the wrapper's K1")
+        turn = itertools.cycle(calls)
+        t[f"k1_alone_tile{tile}"] = time_back_to_back(calls[0])
+        t[f"k1_alone_cold_tile{tile}"] = time_back_to_back(
+            lambda: next(turn)())
+        del sets, calls, turn
+    return t
+
+
+def time_k1_wrapper(koln_flags) -> dict:
+    """K1 through its wrapper on Koln's endpoint stream and on the
+    sparse planner's at Zamba2's plan (T = 1,024) and at long_500k's
+    (T = 16,384), the streams ``block_windows`` gives K1."""
+    from repro_torch.core import sbm
+    from repro_torch.kernels import sbm_sweep as sweep
+    from repro_torch.sparse import BlockPlan, planner
+    z = ZAMBA2
+    t = {"k1_koln": time_ms(lambda: sweep.sbm_sweep(*koln_flags))}
+    for seq in (z["seq"], z["long_seq"]):
+        plan = BlockPlan(seq, z["block"], z["block"], z["window"], z["sink"])
+        S, U = planner._q_subscriptions(plan), planner._kv_updates(plan)
+        flags = sbm._endpoint_stream(S.lo[:, 0], S.hi[:, 0], U.lo[:, 0],
+                                     U.hi[:, 0])
+        t[f"k1_planner_T{flags[0].numel()}"] = time_ms(
+            lambda: sweep.sbm_sweep(*flags))
+    return t
+
+
 def time_k1_k2(is_lo, is_upd, emit_args, k, a1_args, k_a1) -> dict:
     """K1 and K2 beside their wrappers' times: each launch function
-    called raw, 20 launches back to back (``time_back_to_back``); K2 at
-    fig. 9 and at alpha = 1."""
+    called raw, 20 launches back to back (``time_back_to_back``); K1 at
+    its tile sizes, L2 hot and cold (``time_k1``), K2 at fig. 9 and at
+    alpha = 1."""
     import torch
     from repro_torch.kernels import _build
-    lib1, lib2 = _build.load("sbm_sweep"), _build.load("emit")
-    T = is_lo.numel()
-    out1 = torch.empty_like(is_lo)
-    sums = torch.empty(2 * (-(-T // lib1.sbm_sweep_tile())),
-                       dtype=torch.int32, device="cuda")
+    lib2 = _build.load("emit")
     out2 = torch.empty((max(k, k_a1), 2), dtype=torch.int32, device="cuda")
 
     def k2_raw(args, slots):
@@ -470,10 +584,12 @@ def time_k1_k2(is_lo, is_upd, emit_args, k, a1_args, k_a1) -> dict:
                           perm_s.shape[0], perm_u.shape[0], slots,
                           out2.data_ptr())
 
+    t = time_k1(is_lo, is_upd)
+    tile = _build.load("sbm_sweep").const["sbm_sweep_tile"]
+    t["k1_alone"] = t[f"k1_alone_tile{tile}"]
+    t["k1_alone_cold"] = t[f"k1_alone_cold_tile{tile}"]
     return {
-        "k1_alone": time_back_to_back(raw_launch(
-            lib1.sbm_sweep_launch, is_lo.data_ptr(), is_upd.data_ptr(),
-            out1.data_ptr(), sums.data_ptr(), T)),
+        **t,
         "k2_alone": time_back_to_back(k2_raw(emit_args, k)),
         "k2_alpha1_alone": time_back_to_back(k2_raw(a1_args, k_a1)),
     }
@@ -489,8 +605,22 @@ def print_k1_k2(t: dict, k: int, k_a1: int, endpoints: int) -> None:
     tile = _build.load("emit").twopass_emit_tile
     t9, t1 = tile(k), tile(k_a1)
     print(f"[K1] {endpoints} endpoints: {t['k1']!r} ms through the wrapper, "
-          f"{t['k1_alone']!r} ms alone ({tbs(12 * endpoints, t['k1_alone'])!r}"
-          f" TB/s of 12 B an endpoint)")
+          f"{t['k1_alone']!r} ms alone with L2 hot "
+          f"({tbs(12 * endpoints, t['k1_alone'])!r} TB/s of 12 B an "
+          f"endpoint), {t['k1_alone_cold']!r} ms with L2 cold "
+          f"({tbs(12 * endpoints, t['k1_alone_cold'])!r} TB/s); through the "
+          f"wrapper at Koln {t['k1_koln']!r} ms, "
+          + ", ".join(f"at the planner's T = {key[12:]} {t[key]!r} ms"
+                      for key in sorted(t)
+                      if key.startswith("k1_planner_T")))
+    k1_tiles = sorted(int(key[13:]) for key in t
+                      if key.startswith("k1_alone_tile"))
+    for tile_k1 in k1_tiles:
+        print(f"[K1] tiles of {tile_k1} endpoints alone: "
+              f"{t[f'k1_alone_tile{tile_k1}']!r} ms hot, "
+              f"{t[f'k1_alone_cold_tile{tile_k1}']!r} ms cold")
+    funcs = sorted(kernel_code("sbm_sweep"))
+    print(f"[K1] kernel functions in libsbm_sweep: {len(funcs)} {funcs}")
     print(f"[K2] fig. 9 K={k} (tiles of {t9} slots): {t['k2']!r} ms through "
           f"the wrapper, {t['k2_alone']!r} ms alone "
           f"({tbs(12 * k, t['k2_alone'])!r} TB/s of 12 B a slot); alpha=1 "
@@ -1191,6 +1321,138 @@ def run_slice3(dev: str, z: dict) -> dict:
                        "sdpa_vs_plain_rel_rms": lib_rms}}
 
 
+HOST_CALLS = 2000
+
+
+def host_us(fn, calls: int = HOST_CALLS, sync_every: int = 32) -> float:
+    """Median host time of one ``fn()`` in µs over ``calls`` calls, each
+    timed alone with ``time.perf_counter_ns``.  Nothing synchronises
+    inside a timed call; every ``sync_every`` calls the card is drained
+    outside the timed spans, so a call that enqueues work never waits on
+    a full launch queue and the time is the host's alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ns = []
+    for i in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        ns.append(time.perf_counter_ns() - t0)
+        if (i + 1) % sync_every == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(ns) / 1e3
+
+
+def host_phase(card: str | None = None) -> dict:
+    """Phase 17: the host time of K1's, K2's and K6's wrappers at fig. 9,
+    split into the steps of their call path (``host_us`` of each step,
+    then of the whole wrapper call).  Builds its own fig. 9 inputs, so it
+    also runs alone: ``python3 -c 'import chip_smoke as c;
+    c.host_phase()'``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import MatchSpec, build_plan, paper_workload, sbm
+    from repro_torch.kernels import _build, emit
+    from repro_torch.kernels import sbm_sweep as sweep
+    card = card or smi()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    S, U = paper_workload(**FIG9, device="cuda")
+    is_lo, is_upd = sbm._endpoint_stream(S.lo[:, 0], S.hi[:, 0],
+                                         U.lo[:, 0], U.hi[:, 0])
+    k = sbm.sbm_count_binary(S, U)
+    perm_s, perm_u, starts, counts, offs = sbm._twopass_phase1(
+        S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], k)[:5]
+    emit_args = (offs, counts, starts, perm_s, perm_u)
+    n, m = perm_s.shape[0], perm_u.shape[0]
+    view, _ = build_plan(MatchSpec(emit_route="csr", device="cuda"), n, m,
+                         1).pairs(S, U)
+    tab, w0, nsl = view.tab, 0, WINDOW
+    T = is_lo.numel()
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    common = {
+        "torch.cuda.device(dev) enter+exit": ctx,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.cuda.current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(dev.index).cuda_stream,
+        "x.data_ptr()": is_lo.data_ptr,
+    }
+    split = {"common": {name: host_us(fn) for name, fn in common.items()}}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    lib1 = _build.load("sbm_sweep")
+    sw = sweep.scratch_words(T, lib1.const["sbm_sweep_tile"])
+    words = sw + T
+    buf1 = torch.empty(words, dtype=torch.int32, device=dev)
+    k1_args = (is_lo.data_ptr(), is_upd.data_ptr(), buf1.data_ptr() + 4 * sw,
+               buf1.data_ptr(), T)
+    split["K1"] = {name: host_us(fn) for name, fn in {
+        "_check_flags": lambda: sweep._check_flags(is_lo, is_upd),
+        "torch.empty(scratch + out)": lambda: torch.empty(
+            words, dtype=torch.int32, device=dev),
+        "_build.load": lambda: _build.load("sbm_sweep"),
+        "lib.const[tile]": lambda: lib1.const["sbm_sweep_tile"],
+        "the counts' view buf[sw:]": lambda: buf1[sw:],
+        "raw ctypes launch (memset + kernel)":
+            lambda: lib1.sbm_sweep_launch(*k1_args, stream),
+        "_build.launch": lambda: _build.launch(dev, lib1.sbm_sweep_launch,
+                                               *k1_args),
+        "whole sbm_sweep": lambda: sweep.sbm_sweep(is_lo, is_upd),
+    }.items()}
+    # what an event-timed call sees: the host time of a call that follows
+    # a synchronisation, the card idle
+    split["K1"]["whole sbm_sweep, each call after a sync"] = host_us(
+        lambda: sweep.sbm_sweep(is_lo, is_upd), sync_every=1)
+
+    lib2 = _build.load("emit")
+    out2 = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    k2_args = (*(x.data_ptr() for x in emit_args), n, m, k, out2.data_ptr())
+    split["K2"] = {name: host_us(fn) for name, fn in {
+        "_check_slots": lambda: emit._check_slots(k),
+        "_check_tables": lambda: emit._check_tables(*emit_args),
+        "torch.empty(out)": lambda: torch.empty((k, 2), dtype=torch.int32,
+                                                device=dev),
+        "_build.load": lambda: _build.load("emit"),
+        "raw ctypes launch": lambda: lib2.twopass_emit_launch(*k2_args,
+                                                              stream),
+        "_build.launch": lambda: _build.launch(dev, lib2.twopass_emit_launch,
+                                               *k2_args),
+        "whole twopass_emit": lambda: emit.twopass_emit(*emit_args,
+                                                        max_pairs=k),
+    }.items()}
+    del out2
+
+    lib6 = _build.load("csr_decode")
+    out6 = torch.empty((nsl, 2), dtype=torch.int32, device=dev)
+    k6_args = (tab.data_ptr(), tab.shape[1], perm_s.data_ptr(),
+               perm_u.data_ptr(), n, m, w0, nsl, out6.data_ptr())
+    k6_call = (tab, perm_s, perm_u, w0, nsl)
+    split["K6"] = {name: host_us(fn) for name, fn in {
+        "_check_packed": lambda: emit._check_packed(tab, perm_s, perm_u),
+        "torch.empty(out)": lambda: torch.empty((nsl, 2), dtype=torch.int32,
+                                                device=dev),
+        "_build.load": lambda: _build.load("csr_decode"),
+        "raw ctypes launch": lambda: lib6.csr_decode_launch(*k6_args,
+                                                            stream),
+        "_build.launch": lambda: _build.launch(dev, lib6.csr_decode_launch,
+                                               *k6_args),
+        "whole csr_decode_window": lambda: emit.csr_decode_window(*k6_call),
+    }.items()}
+    shapes = {"K1": f"T={T}", "K2": f"K={k} E={n + m}",
+              "K6": f"window of {nsl} slots"}
+    for what, parts in split.items():
+        body = ", ".join(f"{name} {us!r}" for name, us in parts.items())
+        print(f"[host] {what} {shapes.get(what, '')}: median µs of "
+              f"{HOST_CALLS} calls: {body}; on {card}")
+    return split
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1219,6 +1481,7 @@ def main() -> int:
     out2 = run_slice2("cuda", FIG9, MASK, 541_222, WINDOW, KOLN_WINDOW,
                       expect)
     out3 = run_slice3("cuda", ZAMBA2)
+    host_phase(card)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")

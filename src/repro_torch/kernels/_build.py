@@ -7,6 +7,8 @@ the flags, so an edited source or header builds anew).  Builds happen
 at first use, never at import: the CPU tests import every module on
 hosts with no ``nvcc`` and no card.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
+An entry point that takes no arguments is a constant of its library
+(a tile size): ``_open`` reads each once, into ``lib.const``.
 
 A missing card, a missing ``nvcc``, a failed compile or a failed load
 raises ``RuntimeError``; there is no fallback.
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -129,11 +133,13 @@ def _open(name: str, target: Path) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = restype
+    lib.const = {fn: getattr(lib, fn)()
+                 for fn, (argtypes, _) in SIGNATURES[name].items()
+                 if not argtypes}
     return lib
 
 
 def _require_card() -> None:
-    import torch
     if not torch.cuda.is_available():
         raise RuntimeError("the port's CUDA kernels need a CUDA device; "
                            "torch.cuda.is_available() is False")
@@ -167,11 +173,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def launch(device, fn, *args) -> int:
-    """Call the launch function ``fn(*args, stream)`` with ``device``
-    current and its current stream; returns the CUDA error code."""
-    import torch
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    """Call the launch function ``fn(*args, stream)`` on ``device``'s
+    current stream; returns the CUDA error code.
+
+    ``device`` is made current only when it is not already, and
+    ``current_stream`` is given its index: on an H100 host, entering
+    ``torch.cuda.device`` took 3.4 µs against 0.6 µs for the compare,
+    and ``current_stream()`` 6.9 µs against 1.9 µs with the index
+    (``chip_smoke.py``'s ``[host]`` lines).  PyTorch has no public call
+    that reads the raw stream without building a ``Stream`` object.
+    """
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+    with torch.cuda.device(idx):
+        return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
 
 
 def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:

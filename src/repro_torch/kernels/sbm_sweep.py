@@ -8,15 +8,23 @@ being inclusive prefix sums of ±1 deltas.
 
 The TPU kernel carried the two running totals across grid steps in
 SMEM, legal only because a TPU grid runs in order.  CTAs on Hopper run
-in no order, so the CUDA kernel is a three-phase scan: per-CTA delta
-sums, one CTA's exclusive scan of those sums, and a local rescan of
-each tile seeded with its carry.  The ragged tail is masked in the
-kernel, so the wrapper pads nothing.
+in no order, so the CUDA kernel is a single-pass scan with decoupled
+look-back: one launch, in which each CTA takes the next tile from a
+counter, publishes its tile's aggregate, adds its predecessors'
+published aggregates until it meets a published inclusive prefix, and
+writes its counts.  The ragged tail is masked in the kernel and inputs
+off a 16-byte boundary take its scalar instance, so the wrapper pads
+nothing.
 
 Bound on the card: bytes — 12 B per endpoint (two int32 flags in, one
-int32 count out).  At the paper's fig. 9 size (2e6 endpoints) that is
-24 MB, about 7 µs at 3.35 TB/s; the kernel itself reads the flags twice
-(20 B per endpoint).
+int32 count out), each read or written once.  At the paper's fig. 9
+size (2e6 endpoints) that is 24 MB, about 7 µs at 3.35 TB/s.
+
+One call is one allocation (the kernel's scratch, then the counts,
+returned as a view of it), one memset of the scratch and one kernel
+launch, on the current stream.  The scratch comes from PyTorch's
+caching allocator, which orders reuse by stream, so calls on two
+streams never share it.
 
 ``sbm_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs the plain version (``ref.sbm_sweep``) for CPU tensors; there is no
@@ -38,27 +46,34 @@ def _check_flags(is_lo: torch.Tensor, is_upd: torch.Tensor) -> None:
         raise ValueError("is_lo and is_upd must match in shape and device")
 
 
+def scratch_words(T: int, tile: int) -> int:
+    """int32 words of K1's scratch for ``T`` endpoints in tiles of
+    ``tile``: the tile counter (8 bytes), then three 64-bit descriptor
+    words a tile (``csrc/sbm_sweep.cu``), rounded up to 16 bytes so that
+    the counts placed after it start on 16 bytes."""
+    return -(-(2 + 6 * (-(-T // tile))) // 4) * 4
+
+
 def sbm_sweep(is_lo: torch.Tensor, is_upd: torch.Tensor) -> torch.Tensor:
     """Per-endpoint report counts, int32 ``(T,)``, on the inputs' device."""
-    if is_lo.device.type == "cpu":
+    dev = is_lo.device
+    if dev.type == "cpu":
         return ref.sbm_sweep(is_lo, is_upd)
-    if is_lo.device.type != "cuda":
-        raise ValueError(f"sbm_sweep: unsupported device {is_lo.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"sbm_sweep: unsupported device {dev}")
     _check_flags(is_lo, is_upd)
-    out = torch.empty_like(is_lo)
     T = is_lo.shape[0]
     if T == 0:
-        return out
+        return torch.empty_like(is_lo)
     lib = _build.load("sbm_sweep")
-    tile = lib.sbm_sweep_tile()
-    scratch = torch.empty(2 * (-(-T // tile)), dtype=torch.int32,
-                          device=is_lo.device)
-    rc = _build.launch(is_lo.device, lib.sbm_sweep_launch, is_lo.data_ptr(),
-                       is_upd.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                       T)
+    words = scratch_words(T, lib.const["sbm_sweep_tile"])
+    buf = torch.empty(words + T, dtype=torch.int32, device=dev)
+    scratch = buf.data_ptr()
+    rc = _build.launch(dev, lib.sbm_sweep_launch, is_lo.data_ptr(),
+                       is_upd.data_ptr(), scratch + 4 * words, scratch, T)
     _build.check(lib, "sbm_sweep", rc)
     sbm_sweep.launches += 1
-    return out
+    return buf[words:]
 
 
 sbm_sweep.launches = 0

@@ -10,7 +10,11 @@ matcher) and the sink prefix ``[0, sink_end)``: query block i walks the
 ``max(start, sink_end) // bkv`` up to ``end``, under the mask
 ``kv <= q & kv < end``, with a float32 online softmax and the finite
 sentinel -1e30; the output is in q's type.  The function is
-``ref.sparse_attn_bh``'s.
+``ref.sparse_attn_bh``'s.  So when ``sink_end % bkv != 0`` the sink
+keys ``[sink_end // bkv · bkv, sink_end)`` are read only by q blocks
+whose window walk starts at or below them, as in the reference's
+kernel; the planner's ``BlockPlan.sink_end`` is whole blocks and never
+meets this.
 
 Bound on the card: operations, ``4 · dh`` FLOP per allowed (query, key)
 pair and head (``kv <= q``, ``kv < end``, in a walked block), against the

@@ -52,16 +52,80 @@ def _dim0(R):
     return type(R)(R.lo[:, :1], R.hi[:, :1])
 
 
-@pytest.mark.parametrize("T", [1, 2, 255, 2048, 2049, 6000, 1 << 17])
-def test_sweep_kernel_matches_plain(card, T):
-    rng = np.random.default_rng(T)
-    is_lo = torch.from_numpy(rng.integers(0, 2, T).astype(np.int32)).to(card)
-    is_upd = torch.from_numpy(rng.integers(0, 2, T).astype(np.int32)).to(card)
+def _flags(card, T, seed, offset=0):
+    """Random 0/1 int32 flags (prefixes of either sign), as contiguous
+    views starting ``offset`` elements into their buffers."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(0, 2, T + offset).astype(
+        np.int32)).to(card)[offset:] for _ in range(2))
+
+
+# K1's tile is 4096 endpoints; 2^21 + 3 spans 513 tiles and a ragged tail
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("T", [1, 2, 255, 2048, 2049, 4095, 4096, 4097,
+                               6000, 1 << 17, (1 << 21) + 3])
+def test_sweep_kernel_matches_plain(card, T, offset):
+    # offset 1: views off a 16-byte boundary take the scalar instance
+    is_lo, is_upd = _flags(card, T, T, offset)
+    assert is_lo.is_contiguous() and (is_lo.data_ptr() % 16 != 0) == offset
     before = sweep.sbm_sweep.launches
     got = sweep.sbm_sweep(is_lo, is_upd)
     torch.cuda.synchronize()
     assert sweep.sbm_sweep.launches == before + 1
     assert torch.equal(got, ref.sbm_sweep(is_lo, is_upd))
+
+
+def test_sweep_kernel_resets_its_scratch_every_call(card):
+    # 50 calls queued on one stream: each zeroes its counter and status
+    # words before its kernel, so every result is the same
+    is_lo, is_upd = _flags(card, 2_000_000, 5)
+    want = ref.sbm_sweep(is_lo, is_upd)
+    outs = [sweep.sbm_sweep(is_lo, is_upd) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+def test_sweep_kernel_on_two_side_streams(card):
+    a, b = _flags(card, 1_500_001, 6), _flags(card, 2_000_000, 7)
+    want = [ref.sbm_sweep(*a), ref.sbm_sweep(*b)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(10):
+        for i, (st, x) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(st):
+                got[i].append(sweep.sbm_sweep(*x))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+
+
+def test_sweep_call_issues_one_kernel(card):
+    from torch.profiler import ProfilerActivity, profile
+    is_lo, is_upd = _flags(card, 2_000_000, 8)
+    sweep.sbm_sweep(is_lo, is_upd)           # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sweep.sbm_sweep(is_lo, is_upd)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [x for x in names if "memset" not in x.lower()]
+    assert len(kernels) == 1 and "sbm_sweep_kernel" in kernels[0], names
+    assert len(names) - len(kernels) <= 1, names
+
+
+def test_sweep_refused_launch_raises(card):
+    # more tiles than the launch function takes: refused before the
+    # memset or the kernel, and _build.check raises
+    lib = _build.load("sbm_sweep")
+    x = torch.zeros(8, dtype=torch.int32, device=card)
+    rc = _build.launch(x.device, lib.sbm_sweep_launch, x.data_ptr(),
+                       x.data_ptr(), x.data_ptr(), x.data_ptr(), 1 << 62)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="sbm_sweep kernel launch failed"):
+        _build.check(lib, "sbm_sweep", rc)
 
 
 def _workload(card, case):

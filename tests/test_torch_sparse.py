@@ -343,6 +343,43 @@ def test_rows_without_an_allowed_key_get_the_mean_of_v():
                                atol=2e-5)
 
 
+def test_sink_keys_past_the_last_whole_sink_block_are_dropped():
+    # sink_end 100 with bkv 64: the walk takes 100 // 64 = 1 sink block
+    # (keys 0..63), and the window walk starts at max(start, 100) // 64.
+    # Q blocks 2 and 3 have the windows [128, 192) and [192, 256), so no
+    # walk reads the sink keys 64..99 for them: the reference's K7 drops
+    # them there, and the port follows it (ROADMAP Queue 3 item B)
+    S, bq, sink_end = 256, 64, 100
+    plan = tplanner.BlockPlan(S, bq, bq, 64, 0)
+    starts, ends = tplanner.block_windows(plan, device="cpu")
+    np.testing.assert_array_equal(starts.numpy(), [0, 64, 128, 192])
+    np.testing.assert_array_equal(ends.numpy(), [64, 128, 192, 256])
+    q, k, v = _qkv(9, S, 16)
+    got = tsa.sparse_attn_1h(_t(q), _t(k), _t(v), starts, ends, bq=bq,
+                             bkv=bq, sink_end=sink_end).numpy()
+    want = reference_loop(q, k, v, starts.numpy(), ends.numpy(), bq=bq,
+                          bkv=bq, sink_end=sink_end)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+    qb = np.arange(S) // bq
+    win = ((kp >= starts.numpy()[qb][:, None])
+           & (kp < ends.numpy()[qb][:, None]))
+
+    def dense(sink):
+        allowed = (kp <= qp) & (win | (kp < sink))
+        return dense_masked_attention(q, k, v, allowed)
+
+    whole, dropped = dense(sink_end), dense(sink_end // bq * bq)
+    # q blocks 0 and 1 see every allowed key: keys 64..99 lie after
+    # block 0's queries and inside block 1's window
+    np.testing.assert_allclose(got[:128], whole[:128], rtol=2e-5, atol=2e-5)
+    # q blocks 2 and 3 match the oracle without keys 64..99, and miss the
+    # oracle with the whole sink [0, 100)
+    np.testing.assert_allclose(got[128:], dropped[128:], rtol=2e-5,
+                               atol=2e-5)
+    assert np.abs(got[128:] - whole[128:]).max() > 0.1
+
+
 # -- wrapper checks -----------------------------------------------------------
 
 def _ok_args(S=64, dh=16, bq=32):
