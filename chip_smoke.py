@@ -83,7 +83,29 @@ or the JAX package.  Phases, each of which must pass:
             (HMMA/HGMMA in its SASS) and its registers and spills.
 17. host    the host time of K1's, K2's and K6's wrappers at fig. 9,
             split into the steps of their call path (median µs of 2,000
-            calls each, ``host_phase``).
+            calls each, ``host_phase``);
+18. itm     the interval tree through K8 (``csrc/itm_walk.cu``, the tree
+            walk, which the JAX package runs as a vmapped
+            ``lax.while_loop``): at fig. 9 K8's counts and its (b, cap)
+            ids bit-equal to the plain lock-step walk; then the main
+            path ``build_plan(MatchSpec(algo="itm"))`` with ``count()``
+            and exact ``pairs()`` (launch counter zeroed just before):
+            K equal to SBM's, the buffer bit-equal to the
+            ``backend="torch"`` plan and, sorted, to SBM's pairs; Koln's
+            ``count()`` through K8 equal to SBM's K (3,678,811,212); fig.
+            9 at d = 2, pairs set-equal to SBM's;
+19. dynamic ``DDMService`` (itm, grow, cap 8192) at the repo's full-scale
+            churn setting, 1e6 regions at alpha = 5: ``connect()``, three
+            ticks of 10,000 ``update_regions`` moves (sub, upd, sub;
+            drawn by the serving harness's move law, width up to 5e3,
+            from a generator of their own), the ledger equal to a
+            from-scratch SBM ``pairs()`` set, 64 snapshot boxes of width
+            5e3, of each kind, equal to ``oracle_ids``; the same at d = 2
+            with 1e5 regions;
+20. times   K8 (count and pairs instances) through its wrapper and alone,
+            the wrapper's query sort, the plain walk, itm ``count()``/``pairs()`` beside sbm's at
+            fig. 9, ``connect()`` and the median tick (host clock), K8's
+            registers, stack and spills (``cuobjdump``) and its bound.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -1321,6 +1343,265 @@ def run_slice3(dev: str, z: dict) -> dict:
                        "sdpa_vs_plain_rel_rms": lib_rms}}
 
 
+# the dynamic service at the repo's full-scale churn setting
+# (benchmarks/ddm_dynamic.py:120-123): 1e6 regions at alpha = 5 made from
+# seed 2, a per-query cap floor of 8192, three ticks of 10,000 moves and
+# 64 query boxes drawn from a generator of their own (seed + 100) by the
+# harness's laws (src/repro/serve/harness.py:36-45,75); the same at d = 2
+# with 1e5 regions
+DYN = dict(seed=2, n_total=1_000_000, alpha=5.0, cap=8192, moves=10_000,
+           ticks=3, boxes=64, d2_n_total=100_000)
+# the harness's space, its move law (lo uniform on [0, 0.9 space), width
+# uniform on [1, 5e3)) and its query boxes (width 5e3)
+SPACE = 1.0e6
+MOVE_WIDTH = (1.0, 5e3)
+BOX_WIDTH = 5e3
+# operations a K8 node visit takes: two loads and compares to prune,
+# three more to hit, the pushes and the loop (csrc/itm_walk.cu)
+K8_OPS_PER_VISIT = 20
+
+
+def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
+               expect_k: dict | None) -> dict:
+    """Phases 18-20 on ``dev``: the interval tree through K8, the dynamic
+    service, and their times.  Returns launches, the K8 record and times.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.core import (DDMService, MatchSpec, build_plan, itm,
+                                  koln_like_workload, make_regions,
+                                  paper_workload, sbm)
+    from repro_torch.kernels import itm as k8
+    from repro_torch.kernels import ref
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def keys(buf, m):
+        return torch.sort(buf[:, 0].long() * m + buf[:, 1].long()).values
+
+    # -- 18. itm: count() and pairs() through K8 ---------------------------
+    S, U = paper_workload(**fig9, device=dev)
+    n, m = S.n, U.n
+    k_sbm = sbm.sbm_count_binary(S, U)
+    tree = itm.build_tree(S)
+    u_lo, u_hi = U.lo[:, 0], U.hi[:, 0]
+    _, c_kernel = k8.itm_walk(tree, u_lo, u_hi)
+    _, c_plain, visits = itm._lockstep(tree, u_lo, u_hi)
+    k8_err = exact_err(c_kernel, c_plain)
+    check(k8_err == 0, f"K8 counts != plain walk (max err {k8_err})")
+    n_visits = int(visits.sum(dtype=torch.int64))
+    steps = int(visits.max())
+    per_q = int(c_kernel.max())
+    ids_k, cnt_k = k8.itm_walk(tree, u_lo, u_hi, per_q)
+    ids_p, cnt_p = ref.itm_walk(tree, u_lo, u_hi, per_q)
+    check(torch.equal(ids_k, ids_p) and torch.equal(cnt_k, cnt_p),
+          f"K8 pairs instance != plain walk (err {exact_err(ids_k, ids_p)})")
+    del ids_k, ids_p, cnt_k, cnt_p
+    print(f"[K8] fig9 b={m} tree {tree.lo.numel()} nodes: counts and the "
+          f"(b, {per_q}) ids bit-equal to the plain walk; {n_visits} node "
+          f"visits, {steps} lock-step steps")
+
+    k8.itm_walk.launches = 0
+    plan = build_plan(MatchSpec(algo="itm", device=dev), n, m, 1)
+    k_count = plan.count(S, U)
+    res, k_pairs = plan.pairs(S, U)
+    sync()
+    launches = {"itm_walk": k8.itm_walk.launches}
+    check(k_count == k_pairs == k_sbm,
+          f"itm K count={k_count} pairs={k_pairs} != sbm {k_sbm}")
+    if expect_k is not None:
+        check(k_count == expect_k["fig9"], f"itm K {k_count}")
+    plan_t = build_plan(MatchSpec(algo="itm", backend="torch", device=dev),
+                        n, m, 1)
+    res_t, k_t = plan_t.pairs(S, U)
+    check(k_t == k_pairs and torch.equal(res.data, res_t.data),
+          "itm pairs: cuda backend != torch backend")
+    del res_t
+    plan_s = build_plan(MatchSpec(algo="sbm", device=dev), n, m, 1)
+    res_s, _ = plan_s.pairs(S, U)
+    check(torch.equal(keys(res.data, m), keys(res_s.data, m)),
+          "itm pairs sorted != sbm pairs sorted")
+    del res_s
+    print(f"[itm] fig9 count()={k_count} pairs() K={k_pairs} == sbm; "
+          f"buffer == torch backend; launches={launches}")
+
+    SK, UK = koln_like_workload(0, n_positions=koln_positions, device=dev)
+    before = k8.itm_walk.launches
+    plan_k = build_plan(MatchSpec(algo="itm", device=dev), SK.n, UK.n, 1)
+    k_koln = plan_k.count(SK, UK)
+    koln_launches = k8.itm_walk.launches - before
+    k_koln_sbm = sbm.sbm_count_binary(SK, UK)
+    check(k_koln == k_koln_sbm, f"itm Koln K {k_koln} != sbm {k_koln_sbm}")
+    if expect_k is not None:
+        check(k_koln == expect_k["koln"], f"itm Koln K {k_koln}")
+    koln_ms = time_ms(lambda: plan_k.count(SK, UK))
+    print(f"[itm] koln N={SK.n + UK.n} K={k_koln} == sbm; K8 launches="
+          f"{koln_launches}; count() {koln_ms!r} ms")
+
+    S2, U2 = paper_workload(**fig9, d=2, device=dev)
+    got2 = {}
+    for algo in ("itm", "sbm"):
+        r2, k2 = build_plan(MatchSpec(algo=algo, device=dev), S2.n, U2.n,
+                            2).pairs(S2, U2)
+        got2[algo] = (k2, keys(r2.data, U2.n))
+    check(got2["itm"][0] == got2["sbm"][0]
+          and torch.equal(got2["itm"][1], got2["sbm"][1]),
+          "itm d=2 pairs != sbm pairs as sets")
+    if expect_k is not None:
+        check(got2["itm"][0] == expect_k["fig9_d2"], "itm d=2 K")
+    print(f"[itm] fig9 d=2 K={got2['itm'][0]} set-equal to sbm")
+    del S2, U2, got2, SK, UK, plan_k
+
+    # -- 19. the dynamic service ----------------------------------------------
+    dyn_launches = {}
+    dyn_times = {}
+    for d, n_total in ((1, dyn["n_total"]), (2, dyn["d2_n_total"])):
+        DS, DU = paper_workload(seed=dyn["seed"], n_total=n_total,
+                                alpha=dyn["alpha"], d=d, device=dev)
+        spec = MatchSpec(algo="itm", capacity="grow", max_pairs=dyn["cap"],
+                         device=dev)
+        k8.itm_walk.launches = 0
+        svc = DDMService(DS, DU, cap_hint=dyn["cap"], spec=spec)
+        t0 = time.perf_counter()
+        svc.connect()
+        t_connect = (time.perf_counter() - t0) * 1e3
+        k0 = len(svc.pairs)
+        rng = np.random.default_rng(dyn["seed"] + 100)
+        ticks = []
+        for tick in range(dyn["ticks"]):
+            kind = "sub" if tick % 2 == 0 else "upd"
+            nk = svc.s_lo.shape[0] if kind == "sub" else svc.u_lo.shape[0]
+            idx = rng.choice(nk, dyn["moves"], replace=False)
+            lo = rng.uniform(0.0, 0.9 * SPACE,
+                             (dyn["moves"], d)).astype(np.float32)
+            hi = lo + rng.uniform(*MOVE_WIDTH,
+                                  (dyn["moves"], d)).astype(np.float32)
+            t0 = time.perf_counter()
+            svc.update_regions(kind, idx, lo, hi)
+            ticks.append((time.perf_counter() - t0) * 1e3)
+        # the device side of a tick: its one batched query of 2 x moves
+        # boxes (K8 twice, the hit selection, the hits to the host)
+        t0 = time.perf_counter()
+        svc._overlap_hits(kind, np.concatenate([lo, lo]),
+                          np.concatenate([hi, hi]))
+        t_query = (time.perf_counter() - t0) * 1e3
+        sync()
+        dyn_launches[d] = k8.itm_walk.launches
+        check(dev != "cuda" or dyn_launches[d] > 0,
+              f"the d={d} service launched no K8")
+        Sn = make_regions(svc.s_lo, svc.s_hi, dev)
+        Un = make_regions(svc.u_lo, svc.u_hi, dev)
+        res_n, k_n = build_plan(MatchSpec(algo="sbm", device=dev), Sn.n,
+                                Un.n, d).pairs(Sn, Un)
+        mm = Un.n
+        ledger = np.fromiter((s * mm + u for s, u in svc.pairs),
+                             dtype=np.int64, count=len(svc.pairs))
+        check(len(svc.pairs) == k_n and np.array_equal(
+            np.sort(ledger), keys(res_n.data, mm).cpu().numpy()),
+            f"d={d} ledger ({len(svc.pairs)}) != from-scratch sbm ({k_n})")
+        del res_n, ledger
+        snap = svc.snapshot()
+        blo = rng.uniform(0.0, SPACE - BOX_WIDTH,
+                          (dyn["boxes"], d)).astype(np.float32)
+        bhi = (blo + BOX_WIDTH).astype(np.float32)
+        n_hits = 0
+        for kind in ("sub", "upd"):
+            ids, cnt = svc.query_snapshot(snap, kind, blo, bhi)
+            ids = ids.cpu()
+            for i in range(dyn["boxes"]):
+                row = ids[i]
+                got = set(row[row >= 0].tolist())
+                check(got == snap.oracle_ids(kind, blo[i], bhi[i]),
+                      f"d={d} snapshot box {i} ({kind}) != oracle")
+                n_hits += len(got)
+        dyn_times[f"d{d}_connect"] = t_connect
+        dyn_times[f"d{d}_tick_median"] = statistics.median(ticks)
+        dyn_times[f"d{d}_tick_query"] = t_query
+        print(f"[dynamic] d={d} N={n_total}: connect() {t_connect!r} ms "
+              f"(K={k0}), ticks of {dyn['moves']} moves {ticks!r} ms "
+              f"(the query of one {t_query!r}), "
+              f"ledger == from-scratch sbm (K={k_n}), "
+              f"{2 * dyn['boxes']} snapshot boxes == oracle ({n_hits} ids), "
+              f"K8 launches={dyn_launches[d]}")
+        del svc, snap, DS, DU, Sn, Un
+
+    # -- 20. times ------------------------------------------------------------
+    plan_sbm = build_plan(MatchSpec(algo="sbm", device=dev), n, m, 1)
+    times = {
+        "k8": time_ms(lambda: k8.itm_walk(tree, u_lo, u_hi)),
+        "k8_plain": time_ms(lambda: ref.itm_walk(tree, u_lo, u_hi)),
+        "k8_pairs": time_ms(lambda: k8.itm_walk(tree, u_lo, u_hi, per_q)),
+        "itm_build_tree": time_ms(lambda: itm.build_tree(S)),
+        "itm_count_e2e": time_ms(lambda: plan.count(S, U)),
+        "itm_count_koln_e2e": koln_ms,
+        "itm_pairs_e2e": time_ms(lambda: plan.pairs(S, U)),
+        "sbm_count_e2e": time_ms(lambda: plan_sbm.count(S, U)),
+        "sbm_pairs_e2e": time_ms(lambda: plan_sbm.pairs(S, U)),
+        **dyn_times,
+    }
+    # K8: the tree read once, 8 B a query in and 4 B a count out; about
+    # K8_OPS_PER_VISIT operations for each node this run's walks visit
+    tree_bytes = 4 * 5 * tree.lo.numel()
+    k8_bound = bound_ms(tree_bytes + 12 * m, K8_OPS_PER_VISIT * n_visits)
+    k8_pairs_bound = bound_ms(tree_bytes + 12 * m + 4 * m * per_q,
+                              K8_OPS_PER_VISIT * n_visits)
+    if dev == "cuda":
+        from repro_torch.kernels import _build
+        lib = _build.load("itm_walk")
+        cnt_buf = torch.empty(m, dtype=torch.int32, device=dev)
+        ids_buf = torch.full((m, per_q), -1, dtype=torch.int32, device=dev)
+        order = k8.query_order(u_lo)
+        walk = (tree.lo.data_ptr(), tree.hi.data_ptr(),
+                tree.minlower.data_ptr(), tree.maxupper.data_ptr(),
+                tree.ids.data_ptr(), tree.lo.numel() - 1, u_lo.data_ptr(),
+                u_hi.data_ptr(), u_lo.stride(0), order.data_ptr(), m)
+        # alone: the launch without the wrapper's sort and buffers
+        times["k8_alone"] = time_back_to_back(raw_launch(
+            lib.itm_walk_launch, *walk, 0, None, cnt_buf.data_ptr()))
+        check(torch.equal(cnt_buf, c_plain), "K8 alone != plain")
+        times["k8_pairs_alone"] = time_back_to_back(raw_launch(
+            lib.itm_walk_launch, *walk, per_q, ids_buf.data_ptr(),
+            cnt_buf.data_ptr()))
+        times["k8_order_argsort"] = time_ms(lambda: k8.query_order(u_lo))
+        del ids_buf
+        code = kernel_code("itm_walk")
+        _, f_cnt = pick(code, "itm_walk_kernelILb0")
+        _, f_ids = pick(code, "itm_walk_kernelILb1")
+        print(f"[K8] fig9 b={m} ({n_visits} visits, {steps} steps): count "
+              f"instance {times['k8']!r} ms through the wrapper, "
+              f"{times['k8_alone']!r} alone (the "
+              f"order's argsort {times['k8_order_argsort']!r}); pairs "
+              f"instance (cap {per_q}) {times['k8_pairs']!r} / "
+              f"{times['k8_pairs_alone']!r} alone; plain "
+              f"walk {times['k8_plain']!r}; bound {k8_bound[0]!r} "
+              f"({k8_bound[1]}), pairs {k8_pairs_bound[0]!r} "
+              f"({k8_pairs_bound[1]}); {n_visits / (times['k8_alone'] * 1e-3)!r}"
+              f" visits/s alone")
+        print(f"[K8] count instance: {resources(f_cnt)}, static shared "
+              f"{f_cnt.get('shared', 'not read')} B; pairs instance: "
+              f"{resources(f_ids)}, static shared "
+              f"{f_ids.get('shared', 'not read')} B")
+    print(f"[itm] fig9 count() {times['itm_count_e2e']!r} ms, pairs() "
+          f"{times['itm_pairs_e2e']!r} ms; sbm count() "
+          f"{times['sbm_count_e2e']!r}, pairs() {times['sbm_pairs_e2e']!r}")
+    kernels = [{"name": "itm_walk", "route": "cuda",
+                "source": "src/repro_torch/csrc/itm_walk.cu",
+                "replaces": "src/repro/core/itm.py:113",
+                "launches": launches["itm_walk"], "max_abs_err": k8_err,
+                "ms": times["k8"], "plain_ms": times["k8_plain"],
+                "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
+                "library_ms": None, "match": True}]
+    return {"launches": {**launches, "itm_walk (koln)": koln_launches,
+                         **{f"itm_walk (dynamic d={d})": v
+                            for d, v in dyn_launches.items()}},
+            "kernels": kernels, "times": times,
+            "shapes": {"queries": m, "tree_nodes": tree.lo.numel(),
+                       "visits": n_visits, "steps": steps, "per_q": per_q,
+                       "K": k_count}}
+
+
 HOST_CALLS = 2000
 
 
@@ -1482,8 +1763,9 @@ def main() -> int:
                       expect)
     out3 = run_slice3("cuda", ZAMBA2)
     host_phase(card)
+    out4 = run_slice4("cuda", FIG9, 541_222, DYN, expect)
     for kname, count in {**out["launches"], **out2["launches"],
-                         **out3["launches"]}.items():
+                         **out3["launches"], **out4["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
@@ -1498,8 +1780,12 @@ def main() -> int:
     sh3 = out3["shapes"]
     for key, ms in out3["times"].items():
         print(f"[time] {key}: {ms!r} ms (median of {REPS}; {sh3}) on {card}")
+    sh4 = out4["shapes"]
+    for key, ms in out4["times"].items():
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}, ticks of "
+              f"{DYN['ticks']}; {sh4}) on {card}")
     print(json.dumps({"kernels": out["kernels"] + out2["kernels"]
-                      + out3["kernels"]}))
+                      + out3["kernels"] + out4["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

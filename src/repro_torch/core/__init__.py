@@ -2,7 +2,7 @@
 PyTorch), mirroring ``repro.core`` for what is ported so far:
 
     spec = MatchSpec(algo="sbm",        # sbm | sbm_chunked | sbm_binary
-                                        # | bfm | gbm
+                                        # | itm | bfm | gbm
                      backend="cuda",    # cuda (hand kernels) | torch
                      capacity="exact",  # exact | fixed | grow
                      emit_route="auto", # resident | streaming | csr | xla
@@ -11,13 +11,21 @@ PyTorch), mirroring ``repro.core`` for what is ported so far:
     k         = plan.count(S, U)        # exact K, int64-safe
     res, k    = plan.pairs(S, U)        # PairsResult (−1-padded slots)
     mask      = plan.mask(S, U)         # (n, m) bool
+    ids, cnt  = plan.query(tree, opp, q_lo, q_hi)   # batched tree query
+
+    svc = DDMService(S, U)              # dynamic matching (paper §3)
+    svc.connect(); added, removed = svc.update_regions("sub", idx, lo, hi)
 
 Public surface:
     MatchSpec / MatchPlan / build_plan (repro_torch.core.engine)
     PairsResult / DensePairs — the pair-enumeration result contract
     Regions, make_regions, paper_workload, koln_like_workload
     block_mask / pairs_to_set (repro_torch.core.dd_match)
-    the matchers: sbm, brute (BFM), grid (GBM)
+    the matchers: sbm, itm (the interval tree), brute (BFM), grid (GBM)
+    DDMService / DDMSnapshot / StoreView (repro_torch.core.dynamic)
+
+Not ported yet: ``hsbm`` and the distributed backend (ROADMAP Queue 1
+items 7 and 9).
 """
 from .regions import (Regions, make_regions, paper_workload,
                       koln_like_workload, intersect_1d, intersect_dd)
@@ -25,7 +33,8 @@ from .engine import (ALGOS, BACKENDS, CAPACITY_POLICIES, MatchPlan,
                      MatchSpec, build_plan)
 from .pairs import DensePairs, PairsResult
 from .dd_match import block_mask, pairs_to_set
-from . import brute, grid, sbm
+from .dynamic import DDMService, DDMSnapshot, StoreView
+from . import brute, grid, itm, sbm
 
 __all__ = [
     "Regions", "make_regions", "paper_workload", "koln_like_workload",
@@ -33,5 +42,6 @@ __all__ = [
     "MatchSpec", "MatchPlan", "build_plan",
     "ALGOS", "BACKENDS", "CAPACITY_POLICIES",
     "PairsResult", "DensePairs", "block_mask", "pairs_to_set",
-    "sbm", "brute", "grid",
+    "DDMService", "DDMSnapshot", "StoreView",
+    "sbm", "itm", "brute", "grid",
 ]

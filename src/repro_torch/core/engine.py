@@ -1,24 +1,27 @@
 """MatchSpec → MatchPlan engine — one plan/execute API for the port.
 
 The port's counterpart of the JAX package's ``core/engine.py``, for the
-sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``) and the
-paper's two baselines, brute force (``bfm``) and the grid (``gbm``):
+sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``), the
+interval tree (``itm``) and the paper's two baselines, brute force
+(``bfm``) and the grid (``gbm``):
 
     spec = MatchSpec(algo="sbm")                 # backend="cuda", device="cuda"
     plan = build_plan(spec, n_sub=S.n, n_upd=U.n, d=S.d)
     k = plan.count(S, U)                         # exact K, int64-safe
     res, k = plan.pairs(S, U)                    # PairsResult, −1-padded
     mask = plan.mask(S, U)                       # (n, m) bool
+    ids, cnt = plan.query(tree, opp, q_lo, q_hi)   # dynamic service path
 
 Backends
 --------
 ``cuda``   the counterpart of ``pallas``: sorts and searchsorted are
            library calls; the SBM sweep (``count``, K1), the pass-2 emit
-           (``pairs``: K2, K5 or K6 by emit route) and the BFM tile
-           count and mask (K3, K4) are hand-written kernels
-           (``kernels/``).  The default.
+           (``pairs``: K2, K5 or K6 by emit route), the BFM tile
+           count and mask (K3, K4) and the interval tree walk (K8) are
+           hand-written kernels (``kernels/``).  The default.
 ``torch``  the counterpart of ``xla``: the plain tensor code of
-           ``core.sbm``, ``core.brute`` and ``core.grid`` on any device.
+           ``core.sbm``, ``core.itm``, ``core.brute`` and ``core.grid``
+           on any device.
 
 ``device`` names where the plan's buffers live and where its inputs
 must be; it defaults to ``cuda``, and ``cuda`` without a card raises
@@ -39,6 +42,13 @@ Capacity policies (buffer sizing for ``pairs()``)
 ``fixed``  caller-supplied ``max_pairs``; truncation reports the true K.
 ``grow``   power-of-two buffer, re-emitted doubled on overflow and
            memoized.  Floored at ``max_pairs`` when given.
+``query()`` sizes its per-query id buffer the same way: the largest
+dim-0 count (``exact``), ``max_pairs`` (``fixed``), or a memoized power
+of two floored at ``max_pairs`` (``grow``, the ``DDMService`` default).
+
+ITM counts on a tree built on the smaller set (``swap="auto"``, or the
+side ``swap`` names) and enumerates on a tree built on S, querying every
+update region, as the reference does.
 
 d > 1 enumerates dim-0 candidates with the 1-D path, sized exactly by
 the binary-search per-subscription counts, and filters dimensions
@@ -47,9 +57,9 @@ is rejected for d > 1.  Zero-region inputs give K = 0, an all-−1 buffer
 and an all-False mask without launching a kernel.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``hsbm``, ``itm``, the distributed backend and
-``query()``.  PyTorch runs eagerly, so there is no jit cache and no
-trace counter (the recompile audit is item 12).
+Queue 1 item: ``hsbm`` and the distributed backend.  PyTorch runs
+eagerly, so there is no jit cache and no trace counter (the recompile
+audit is item 12).
 """
 from __future__ import annotations
 
@@ -60,19 +70,19 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import brute, grid, sbm
+from . import brute, grid, itm, sbm
 from .pairs import DensePairs, PairsResult, to_numpy
 from .regions import Regions, resolve_device
 
 ALGOS = ("bfm", "gbm", "sbm", "sbm_chunked", "sbm_binary", "hsbm", "itm")
 BACKENDS = ("torch", "cuda", "distributed")
 CAPACITY_POLICIES = ("exact", "fixed", "grow")
+SWAPS = ("auto", "S", "U")
 EMIT_ROUTES = ("auto", "resident", "streaming", "csr", "xla")
 
 # what is not ported yet, and where the ROADMAP queues it
 _NOT_PORTED = {
     "hsbm": "ROADMAP Queue 1 item 7",
-    "itm": "ROADMAP Queue 1 item 8",
     "distributed": "ROADMAP Queue 1 item 9",
 }
 _SBM_FAMILY = ("sbm", "sbm_chunked", "sbm_binary")
@@ -104,6 +114,7 @@ class MatchSpec:
     tile: int = 4096               # BFM torch-backend U-tile
     ncells: int = 3000             # GBM grid cells
     p: int = 8                     # chunked-SBM segments
+    swap: str = "auto"             # ITM build side for count()
     ts: int = 256                  # BFM kernel K3 tile sizes
     tu: int = 256
     block: int = 4096              # streaming emit (K5) slots per CTA
@@ -126,6 +137,8 @@ class MatchSpec:
         if self.emit_route not in EMIT_ROUTES:
             raise ValueError(f"emit_route must be one of {EMIT_ROUTES}, "
                              f"got {self.emit_route}")
+        if self.swap not in SWAPS:
+            raise ValueError(f"swap must be one of {SWAPS}, got {self.swap}")
         if self.d is not None and self.d < 1:
             raise ValueError(f"d must be >= 1, got {self.d}")
         if self.emit_route == "csr" and self.d is not None and self.d > 1:
@@ -146,7 +159,8 @@ class MatchPlan:
     """Matcher for one ``(spec, n_sub, n_upd, d)`` problem shape.
 
     Holds the resolved device and the memoized capacities of the
-    ``exact``/``grow`` policies.
+    ``exact``/``grow`` policies (``pairs()``, the d > 1 candidates and
+    ``query()``).
     """
 
     def __init__(self, spec: MatchSpec, n_sub: int, n_upd: int, d: int):
@@ -165,6 +179,7 @@ class MatchPlan:
         self.d = int(d)
         self._cap: int | None = None        # memoized output capacity
         self._cand_cap: int | None = None   # memoized dim-0 candidate cap
+        self._query_cap = max(spec.max_pairs or 1, 1)   # query() grow cap
 
     def __repr__(self) -> str:
         s = self.spec
@@ -243,6 +258,12 @@ class MatchPlan:
             return sbm._total(sbm._chunked_contribs(*args, p=spec.p))
         if algo == "sbm_binary":
             return sbm._total(sbm.sbm_count_per_sub(S, U))
+        if algo == "itm":
+            build_on_S = (S.n <= U.n if spec.swap == "auto"
+                          else spec.swap == "S")
+            T = itm.build_tree(S if build_on_S else U)
+            Q = U if build_on_S else S
+            return sbm._total(self._itm_counts(T, Q.lo[:, 0], Q.hi[:, 0]))
         if algo == "gbm":
             return grid.gbm_count(S, U, ncells=spec.ncells)
         raise AssertionError(algo)
@@ -292,8 +313,10 @@ class MatchPlan:
             # GBM degenerates to BFM for enumeration (paper: per-cell
             # matching IS brute force; pair identity needs no grid)
             return self._pairs_bfm(S, U, out_cap)
-        cand, k = self._pairs_sbm_dim0(
-            S, U, out_cap if self.d == 1 else self._cand_bound(S, U))
+        dim0 = (self._pairs_itm_dim0 if self.spec.algo == "itm"
+                else self._pairs_sbm_dim0)
+        cand, k = dim0(S, U, out_cap if self.d == 1
+                       else self._cand_bound(S, U))
         if self.d == 1:
             return cand, k
         pairs, count = sbm_verify_dims(S, U, cand, max_pairs=out_cap)
@@ -320,6 +343,40 @@ class MatchPlan:
                                           budget=spec.emit_budget,
                                           dense_only=self.d > 1)
         return sbm.sbm_pairs(S0, U0, cap)
+
+    # -- ITM: the tree walk, K8 on the cuda backend ---------------------------
+    def _itm_order(self, q_lo):
+        """K8's query order, sorted once for a count walk and a pairs walk
+        of the same queries; ``None`` where no kernel runs."""
+        if self.spec.backend == "cuda" and q_lo.is_cuda:
+            from ..kernels import itm as itm_kernel
+            return itm_kernel.query_order(q_lo)
+        return None
+
+    def _itm_counts(self, tree, q_lo, q_hi, order=None) -> torch.Tensor:
+        if self.spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.itm_query_counts_cuda(tree, q_lo, q_hi, order)
+        return itm.itm_query_counts(tree, q_lo, q_hi)
+
+    def _itm_pairs(self, tree, q_lo, q_hi, cap: int, order=None):
+        if self.spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.itm_query_pairs_cuda(tree, q_lo, q_hi, cap, order)
+        return itm.itm_query_pairs(tree, q_lo, q_hi, cap)
+
+    def _pairs_itm_dim0(self, S: Regions, U: Regions, cap: int):
+        """Dim-0 pairs from a tree on S, every update region a query:
+        ``(pairs (cap, 2) in (update, DFS) order, exact K)``."""
+        T = itm.build_tree(self._project(S))
+        u_lo, u_hi = U.lo[:, 0], U.hi[:, 0]
+        order = self._itm_order(u_lo)
+        counts = self._itm_counts(T, u_lo, u_hi, order)
+        per_q = max(int(counts.max()), 1)
+        if self.spec.capacity == "grow":   # bound the buffer shapes
+            per_q = _pow2(per_q)
+        ids, _ = self._itm_pairs(T, u_lo, u_hi, per_q, order)
+        return itm_flatten_pairs(ids, cap), sbm._total(counts)
 
     def emit_route(self) -> str | None:
         """The pass-2 route ``pairs()`` takes on the cuda backend.
@@ -385,13 +442,46 @@ class MatchPlan:
             return ops.bfm_mask_cuda(S, U)
         return brute.bfm_mask(S, U)
 
-    # -- not ported yet -----------------------------------------------------
+    # -- dynamic-service batched query (paper §3) ---------------------------
+    def query(self, tree: itm.ITree, opp: Regions, q_lo, q_hi):
+        """Verified d-dim overlap ids for a batch of query boxes.
 
-    def query(self, tree, opp: Regions, q_lo, q_hi):
-        """Dynamic-service batched query — not ported yet (item 8)."""
-        raise NotImplementedError(
-            "MatchPlan.query() is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 8)")
+        ``tree`` indexes dim 0 of the ``opp`` regions; ``q_lo``/``q_hi``
+        are (b, d).  Returns ``(ids (b, cap) −1-padded, counts (b,))``,
+        int32, with ``cap`` resolved by the capacity policy (``grow``
+        memoizes a power of two, the ``DDMService`` path).  The walk is
+        K8 on the cuda backend; dims 1+ are verified by gathers.
+        """
+        b = int(q_lo.shape[0])
+        if b == 0 or opp.n == 0:
+            return (torch.full((b, 1), -1, dtype=torch.int32,
+                               device=self.device),
+                    torch.zeros((b,), dtype=torch.int32, device=self.device))
+        for name, x in (("tree", tree.lo), ("opp", opp.lo), ("q_lo", q_lo),
+                        ("q_hi", q_hi)):
+            if x.device.type != self.device.type:
+                raise ValueError(f"{name} lives on {x.device} but the plan "
+                                 f"runs on {self.device}")
+        q_lo, q_hi = q_lo.float(), q_hi.float()
+        order = self._itm_order(q_lo[:, 0])
+        counts0 = self._itm_counts(tree, q_lo[:, 0], q_hi[:, 0], order)
+        cap = self._resolve_query_cap(int(counts0.max()))
+        if self.spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.itm_query_pairs_dd_cuda(tree, opp.lo, opp.hi, q_lo,
+                                               q_hi, cap, order)
+        return itm.itm_query_pairs_dd(tree, opp.lo, opp.hi, q_lo, q_hi, cap)
+
+    def _resolve_query_cap(self, need: int) -> int:
+        """Per-query id-buffer capacity under the plan's policy."""
+        need = max(need, 1)
+        pol = self.spec.capacity
+        if pol == "fixed":
+            return max(self.spec.max_pairs, 1)
+        if pol == "exact":
+            return need
+        self._query_cap = max(self._query_cap, _pow2(need))
+        return self._query_cap
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +503,15 @@ def select_rows(rows: torch.Tensor, keep: torch.Tensor,
                      device=rows.device)
     out[:sel.shape[0]] = rows[sel]
     return out
+
+
+def itm_flatten_pairs(ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Flatten a (b, per_q) walk buffer into (id, query) rows, int32
+    (cap, 2), in query order then DFS order, −1-padded (or cut)."""
+    q = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    rows = torch.stack([ids.flatten(),
+                        q[:, None].expand(ids.shape).flatten()], dim=1)
+    return select_rows(rows, (ids >= 0).flatten(), cap)
 
 
 def describe_pair_range_errors(arr: np.ndarray, m: int,

@@ -67,6 +67,11 @@ SIGNATURES = {
         "csr_decode_wmax": ((), _I),
         "csr_decode_launch": ((_P, _L, _P, _P, _I, _I, _L, _L, _P, _P), _I),
     },
+    "itm_walk": {
+        "itm_walk_strerror": ((_I,), ctypes.c_char_p),
+        "itm_walk_launch": ((_P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I,
+                             _P, _P, _P), _I),
+    },
     "sparse_attn": {
         "sparse_attn_strerror": ((_I,), ctypes.c_char_p),
         "sparse_attn_launch": ((_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _I,

@@ -8,7 +8,11 @@ The port's counterpart of the JAX package's ``kernels/ops.py``:
 * SBM: ``sbm_count_cuda`` (K1) and ``twopass_pairs_cuda``, whose pass 2
   takes one of four routes: ``resident`` (K2), ``streaming`` (K5),
   ``csr`` (a lazy ``CSRPairs`` view decoded by K6) or ``xla`` (the plain
-  torch pass 2, ``core.sbm.sbm_pairs``).
+  torch pass 2, ``core.sbm.sbm_pairs``);
+* ITM: ``itm_query_counts_cuda``, ``itm_query_pairs_cuda`` and
+  ``itm_query_pairs_dd_cuda``, the tree walk in K8 (the reference's
+  vmapped ``while_loop``); the dims-1+ verify stays gathers and compares,
+  as the reference leaves it to XLA.
 
 Sorts, searchsorted, the offset scan and the table compaction around the
 kernels stay library calls, as they were XLA outside Pallas in the
@@ -33,12 +37,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import brute, sbm
+from ..core import brute, itm, sbm
 from ..core.engine import EMIT_ROUTES
 from ..core.pairs import PairsResult
 from ..core.regions import Regions
 from . import bfm as bfm_kernel
 from . import emit as emit_kernel
+from . import itm as itm_kernel
 from . import sbm_sweep as sweep_kernel
 
 # the H100's L2, the cache that serves the emit tables (bytes)
@@ -273,3 +278,29 @@ def twopass_pairs_cuda(S: Regions, U: Regions, max_pairs: int, *,
     pairs = emit_kernel.twopass_emit_streaming(
         tab, perm_s, perm_u, max_pairs=max_pairs, block=bl)
     return pairs, count
+
+
+# ---------------------------------------------------------------------------
+# ITM: kernel K8
+# ---------------------------------------------------------------------------
+
+def itm_query_counts_cuda(tree: itm.ITree, q_lo, q_hi,
+                          order=None) -> torch.Tensor:
+    """Per-query overlap counts, int32 (b,), via K8's count instance;
+    ``order`` is K8's query order (``kernels.itm.query_order``), sorted
+    here when not given."""
+    return itm_kernel.itm_walk(tree, q_lo, q_hi, order=order)[1]
+
+
+def itm_query_pairs_cuda(tree: itm.ITree, q_lo, q_hi, cap: int,
+                         order=None):
+    """``(ids int32 (b, cap), counts int32 (b,))`` via K8: each query's
+    first ``cap`` hits in DFS order, −1 padded; counts go on past cap."""
+    return itm_kernel.itm_walk(tree, q_lo, q_hi, cap, order=order)
+
+
+def itm_query_pairs_dd_cuda(tree: itm.ITree, o_lo, o_hi, q_lo, q_hi,
+                            cap: int, order=None):
+    """``core.itm.itm_query_pairs_dd`` with the dim-0 walk in K8."""
+    ids, _ = itm_query_pairs_cuda(tree, q_lo[:, 0], q_hi[:, 0], cap, order)
+    return itm.verify_dims(ids, o_lo, o_hi, q_lo, q_hi)

@@ -14,6 +14,9 @@ Pallas kernels (interpret mode) or its plain pass 2, and
   package's ``kernels/ref.py:bfm_tile_counts`` / ``bfm_mask``);
 * ``twopass_emit_streaming`` / ``csr_decode_window`` — K5's and K6's
   functions, both ``core.sbm._packed_window`` over the packed table;
+* ``itm_walk`` — K8's function, the lock-step tree walk of
+  ``core.itm._lockstep`` (the JAX package's vmapped ``while_loop``,
+  ``core/itm.py:113,152``; K8 has no Pallas counterpart);
 * ``sparse_attn_bh`` — K7's function, the block walk of the JAX
   package's ``kernels/sparse_attn.py:_kernel`` (not ``windowed_attention``
   of its ``kernels/ref.py``, which has no causal mask and no sink).
@@ -23,12 +26,14 @@ from __future__ import annotations
 import torch
 
 from ..core.brute import _mask_block
+from ..core.itm import _lockstep
 from ..core.sbm import _packed_window
 from ..core.sbm import _stream_contribs as sbm_sweep
 from ..core.sbm import _twopass_slots as twopass_emit
 
 __all__ = ["sbm_sweep", "twopass_emit", "bfm_tile_counts", "bfm_mask",
-           "twopass_emit_streaming", "csr_decode_window", "sparse_attn_bh"]
+           "twopass_emit_streaming", "csr_decode_window", "itm_walk",
+           "sparse_attn_bh"]
 
 # elements of one row block's (rows, m, d) compare in bfm_tile_counts
 _TILE_COUNT_BLOCK = 1 << 28
@@ -75,6 +80,12 @@ def csr_decode_window(tab, perm_s, perm_u, w0: int, nslots: int):
     """K6's function: slots ``[w0, w0 + nslots)`` of the pass-2 buffer
     from the packed compacted table."""
     return _packed_window(tab, perm_s, perm_u, w0, w0 + nslots)
+
+
+def itm_walk(tree, q_lo, q_hi, cap: int = 0):
+    """K8's function: ``(ids (b, cap), counts (b,))``, each query's first
+    ``cap`` hits in DFS order, −1 padded; counts go on past ``cap``."""
+    return _lockstep(tree, q_lo, q_hi, cap)[:2]
 
 
 def window_blocks(starts, ends, *, bkv: int, sink_end: int):

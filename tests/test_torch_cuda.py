@@ -2,8 +2,8 @@
 
 K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 (``csrc/bfm.cu``),
 K4 (``csrc/bfm_mask.cu``), K5 (``csrc/emit_stream.cu``), K6
-(``csrc/csr_decode.cu``) and K7 (``csrc/sparse_attn.cu``) have no CPU
-mode, so these tests carry the
+(``csrc/csr_decode.cu``), K7 (``csrc/sparse_attn.cu``) and K8
+(``csrc/itm_walk.cu``) have no CPU mode, so these tests carry the
 ``cuda`` marker and skip on a host without a card.  The file imports neither JAX nor the JAX package, so it also runs
 on the card host, which has no JAX:
 
@@ -21,7 +21,9 @@ from torch_emit_tables import zero_run_tables  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import MatchSpec, build_plan, paper_workload  # noqa: E402
 from repro_torch.core import sbm  # noqa: E402
+from repro_torch.core import DDMService, itm  # noqa: E402
 from repro_torch.kernels import _build, bfm, emit, ops, ref  # noqa: E402
+from repro_torch.kernels import itm as k8  # noqa: E402
 from repro_torch.kernels import sbm_sweep as sweep  # noqa: E402
 from repro_torch.kernels import sparse_attn as tsa  # noqa: E402
 from repro_torch.sparse import BlockPlan, block_windows  # noqa: E402
@@ -672,3 +674,164 @@ def test_sparse_attn_refused_launch_raises(card):
         tsa.sparse_attn_bh(q[..., :256].contiguous(),
                            q[..., :256].to(torch.bfloat16), q[..., :256],
                            se, se, bq=128)
+
+
+# ---------------------------------------------------------------------------
+# K8: the interval tree walk
+# ---------------------------------------------------------------------------
+
+def _itm_case(card, n, b, seed, integer=True, d=1):
+    """A tree over n intervals (integer endpoints: tied lo values) and
+    b query boxes of d dimensions on the card."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 1000, (n, d)).astype(np.float32)
+    hi = lo + rng.uniform(0.5, 40, (n, d)).astype(np.float32)
+    q_lo = rng.uniform(-20, 1020, (b, d)).astype(np.float32)
+    q_hi = q_lo + rng.uniform(0.1, 60, (b, d)).astype(np.float32)
+    if integer:
+        lo, hi, q_lo = np.floor(lo), np.ceil(hi), np.floor(q_lo)
+    R = convert.regions_from_numpy(lo, hi, card)
+    return (R, itm.build_tree(R), torch.from_numpy(q_lo).to(card),
+            torch.from_numpy(q_hi).to(card))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,b", [(1, 7), (2, 33), (3, 255), (1000, 1000),
+                                 (4097, 4099), (100_000, 50_001)])
+def test_itm_kernel_matches_plain(card, n, b, integer):
+    _, tree, q_lo, q_hi = _itm_case(card, n, b, n + b, integer)
+    ql, qh = q_lo[:, 0], q_hi[:, 0]
+    want_ids, want = ref.itm_walk(tree, ql, qh)
+    before = k8.itm_walk.launches
+    ids, got = k8.itm_walk(tree, ql, qh)
+    torch.cuda.synchronize()
+    assert ids.shape == want_ids.shape == (b, 0)
+    assert k8.itm_walk.launches == before + 1
+    assert torch.equal(got, want)
+    top = int(want.max())
+    for cap in sorted({1, max(top // 2, 1), max(top, 1), top + 3}):
+        ids, got = k8.itm_walk(tree, ql, qh, cap)
+        want_ids, want = ref.itm_walk(tree, ql, qh, cap)
+        assert torch.equal(ids, want_ids) and torch.equal(got, want), cap
+    # a caller's order, any permutation of the queries, changes no result
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(b))
+    ids, got = k8.itm_walk(tree, ql, qh, cap, perm.to(card, torch.int32))
+    assert torch.equal(ids, want_ids) and torch.equal(got, want)
+    assert k8.itm_walk.launches == before + 2 + len(
+        {1, max(top // 2, 1), max(top, 1), top + 3})
+
+
+def test_itm_kernel_zero_queries_and_strided_queries(card):
+    R, tree, q_lo, q_hi = _itm_case(card, 500, 300, 1, d=2)
+    before = k8.itm_walk.launches
+    ids, cnt = k8.itm_walk(tree, q_lo[:0, 0], q_hi[:0, 0], 4)
+    assert ids.shape == (0, 4) and cnt.shape == (0,)
+    assert k8.itm_walk.launches == before
+    # the columns of (b, 2) queries: stride 2, read without a copy
+    ids, cnt = k8.itm_walk(tree, q_lo[:, 0], q_hi[:, 0], 16)
+    want = ref.itm_walk(tree, q_lo[:, 0].contiguous(),
+                        q_hi[:, 0].contiguous(), 16)
+    assert torch.equal(ids, want[0]) and torch.equal(cnt, want[1])
+    # the d = 2 query path: K8, then the gathers of dimension 1
+    got = ops.itm_query_pairs_dd_cuda(tree, R.lo, R.hi, q_lo, q_hi, 64)
+    want = itm.itm_query_pairs_dd(tree, R.lo, R.hi, q_lo, q_hi, 64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_itm_kernel_rows_past_2_31_slots(card):
+    # b * cap = 262,145 * 8192 > 2^31: the last rows sit past slot 2^31
+    b, cap = 262_145, 8192
+    _, tree, q_lo, q_hi = _itm_case(card, 2000, b, 5)
+    ql, qh = q_lo[:, 0], q_hi[:, 0]
+    ids, cnt = k8.itm_walk(tree, ql, qh, cap)
+    torch.cuda.synchronize()
+    assert ids.shape == (b, cap) and b * cap > 2 ** 31
+    assert torch.equal(cnt, ref.itm_walk(tree, ql, qh)[1])
+    tail_ids, tail_cnt = ref.itm_walk(tree, ql[-16:], qh[-16:], cap)
+    assert int(tail_cnt.sum()) > 0
+    assert torch.equal(ids[-16:], tail_ids)
+    assert torch.equal(ids[:16], ref.itm_walk(tree, ql[:16], qh[:16],
+                                              cap)[0])
+    del ids
+
+
+def test_itm_kernel_rejects_bad_tensors(card):
+    _, tree, q_lo, q_hi = _itm_case(card, 100, 10, 2)
+    ql, qh = q_lo[:, 0], q_hi[:, 0]
+    with pytest.raises(ValueError, match="float32"):
+        k8.itm_walk(tree, ql.double(), qh.double())
+    with pytest.raises(ValueError, match="tree.lo"):
+        k8.itm_walk(tree._replace(lo=tree.lo.double()), ql, qh)
+    with pytest.raises(ValueError, match="tree.ids"):
+        k8.itm_walk(tree._replace(ids=tree.ids.long()), ql, qh)
+    with pytest.raises(ValueError, match="tree.hi"):
+        k8.itm_walk(tree._replace(hi=tree.hi.cpu()), ql, qh)
+    with pytest.raises(ValueError, match="q_hi"):
+        k8.itm_walk(tree, ql, qh.cpu())
+    cut = itm.ITree(*(x[:6] for x in tree))
+    with pytest.raises(ValueError, match="power of two"):
+        k8.itm_walk(cut, ql, qh)
+    with pytest.raises(ValueError, match="cap must be"):
+        k8.itm_walk(tree, ql, qh, -1)
+    with pytest.raises(ValueError, match="match in shape"):
+        k8.itm_walk(tree, ql, qh[:5])
+    order = k8.query_order(ql)
+    for bad in (order.long(), order[:5], order.cpu(), order.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="order must be"):
+            k8.itm_walk(tree, ql, qh, 0, bad)
+
+
+def test_itm_refused_launch_raises(card):
+    # a tree length past the kernel's limit, forced past the wrapper's
+    # checks: the launch function refuses it and the wrapper raises
+    _, tree, q_lo, _ = _itm_case(card, 10, 4, 3)
+    lib = _build.load("itm_walk")
+    cnt = torch.empty(4, dtype=torch.int32, device=card)
+    rc = _build.launch(card, lib.itm_walk_launch, tree.lo.data_ptr(),
+                       tree.hi.data_ptr(), tree.minlower.data_ptr(),
+                       tree.maxupper.data_ptr(), tree.ids.data_ptr(), 6,
+                       q_lo.data_ptr(), q_lo.data_ptr(), 1, None, 4, 0, None,
+                       cnt.data_ptr())
+    with pytest.raises(RuntimeError, match="itm_walk kernel launch failed"):
+        _build.check(lib, "itm_walk", rc)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("capacity", ["exact", "fixed", "grow"])
+def test_itm_cuda_backend_equals_torch_backend(card, capacity, d):
+    S, U = paper_workload(11, 20_000, 50.0, d=d, device=card)
+    out = {}
+    for backend in ("cuda", "torch"):
+        k8.itm_walk.launches = 0
+        plan = build_plan(MatchSpec(algo="itm", backend=backend,
+                                    capacity=capacity, max_pairs=999),
+                          S.n, U.n, d)
+        res, kp = plan.pairs(S, U)
+        tree = itm.build_tree(S)
+        ids, cnt = plan.query(tree, S, U.lo[:300], U.hi[:300])
+        out[backend] = (plan.count(S, U), kp, res.data, ids, cnt,
+                        k8.itm_walk.launches)
+    c, t = out["cuda"], out["torch"]
+    assert c[:2] == t[:2]
+    for a, b in zip(c[2:5], t[2:5]):
+        assert torch.equal(a, b)
+    assert c[5] >= 3 and t[5] == 0
+
+
+def test_ddm_service_on_the_card_equals_the_cpu(card):
+    S, U = paper_workload(2, 20_000, 5.0, d=2, device="cpu")
+    rng = np.random.default_rng(0)
+    svcs = [DDMService(S, U, spec=MatchSpec(algo="itm", capacity="grow",
+                                            device=dev))
+            for dev in ("cuda", "cpu")]
+    k8.itm_walk.launches = 0
+    assert svcs[0].connect() == svcs[1].connect()
+    for tick in range(4):
+        kind = "sub" if tick % 2 == 0 else "upd"
+        idx = rng.choice(S.n, 500, replace=False)
+        lo = rng.uniform(0, 9e5, (500, 2)).astype(np.float32)
+        hi = lo + rng.uniform(1.0, 5e3, (500, 2)).astype(np.float32)
+        assert (svcs[0].update_regions(kind, idx, lo, hi)
+                == svcs[1].update_regions(kind, idx, lo, hi))
+    assert svcs[0].pairs == svcs[1].pairs
+    assert k8.itm_walk.launches >= 10
