@@ -95,17 +95,41 @@ or the JAX package.  Phases, each of which must pass:
             ``count()`` through K8 equal to SBM's K (3,678,811,212); fig.
             9 at d = 2, pairs set-equal to SBM's;
 19. dynamic ``DDMService`` (itm, grow, cap 8192) at the repo's full-scale
-            churn setting, 1e6 regions at alpha = 5: ``connect()``, three
-            ticks of 10,000 ``update_regions`` moves (sub, upd, sub;
-            drawn by the serving harness's move law, width up to 5e3,
-            from a generator of their own), the ledger equal to a
-            from-scratch SBM ``pairs()`` set, 64 snapshot boxes of width
-            5e3, of each kind, equal to ``oracle_ids``; the same at d = 2
-            with 1e5 regions;
+            churn setting, 1e6 regions at alpha = 5: ``connect()``, one
+            tick of 10,000 ``update_regions`` moves (drawn by the serving
+            harness's move law, width up to 5e3, from a generator of
+            their own), the ledger equal to a from-scratch SBM
+            ``pairs()`` set, 64 snapshot boxes of width 5e3, of each
+            kind, equal to ``oracle_ids``; the same at d = 2 with 1e5
+            regions and three ticks (sub, upd, sub);
 20. times   K8 (count and pairs instances) through its wrapper and alone,
             the wrapper's query sort, the plain walk, itm ``count()``/``pairs()`` beside sbm's at
             fig. 9, ``connect()`` and the median tick (host clock), K8's
-            registers, stack and spills (``cuobjdump``) and its bound.
+            registers, stack and spills (``cuobjdump``) and its bound;
+21. hsbm    the hybrid grid+SBM, ``build_plan(MatchSpec(algo="hsbm"))``,
+            at fig. 9 with K2's, K5's and K6's launch counters zeroed just
+            before and read just after: ``count()`` and ``pairs()`` under
+            ``auto`` (resident, K2), then ``emit_route="streaming"`` (K5)
+            and ``"csr"`` (K6 windows of 2^22 slots); K equal to sbm's,
+            each buffer bit-equal to the ``backend="torch"`` plain pass 2
+            and, sorted, to sbm's pairs; K2, K5 and K6 bit-equal to their
+            plain versions on the hybrid tables; fig. 9 at d = 2
+            set-equal to sbm; Koln's ``count()`` (K past 2^31), its
+            hybrid tables on the resident route, and ``csr`` at cap
+            INT32_MAX with windows above slot 2^30 equal to the plain
+            decode and an uncompacted lookup; K2 on Koln's tables; then
+            the times: hsbm ``count()``/``pairs()`` beside sbm's, the
+            geometry (the copy to the host and the NumPy apart), pass 1,
+            K2/K5/K6 on the hybrid tables, ``remap_slot_pairs``;
+22. serve   ``repro_torch.serve.harness.run_churn`` at the repo's
+            full-scale churn setting (one tenant of 1e6 regions, 10,000
+            moves and 64 queries a tick, three ticks, batches of 64, cap
+            8192, seed 2) on the card, every answer checked against its
+            snapshot's oracle, the steady-state guard on, K8's counter
+            zeroed just before; query, stale-query and rebuild latencies;
+23. entry   ``python -m repro_torch.serve --smoke`` (3 tenants, d = 1
+            and 2), then with ``--threaded``, as subprocesses: each must
+            exit 0 and print ``SERVE_SMOKE_OK``.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -1345,12 +1369,14 @@ def run_slice3(dev: str, z: dict) -> dict:
 
 # the dynamic service at the repo's full-scale churn setting
 # (benchmarks/ddm_dynamic.py:120-123): 1e6 regions at alpha = 5 made from
-# seed 2, a per-query cap floor of 8192, three ticks of 10,000 moves and
-# 64 query boxes drawn from a generator of their own (seed + 100) by the
+# seed 2, a per-query cap floor of 8192, ticks of 10,000 moves and 64
+# query boxes drawn from a generator of their own (seed + 100) by the
 # harness's laws (src/repro/serve/harness.py:36-45,75); the same at d = 2
-# with 1e5 regions
+# with 1e5 regions.  One tick at d = 1 (each is 47-61 s of host work on
+# the ledger on an NVIDIA H100 80GB HBM3 host at 700 W, PERF.md), three at
+# d = 2.
 DYN = dict(seed=2, n_total=1_000_000, alpha=5.0, cap=8192, moves=10_000,
-           ticks=3, boxes=64, d2_n_total=100_000)
+           ticks=1, boxes=64, d2_n_total=100_000, d2_ticks=3)
 # the harness's space, its move law (lo uniform on [0, 0.9 space), width
 # uniform on [1, 5e3)) and its query boxes (width 5e3)
 SPACE = 1.0e6
@@ -1457,7 +1483,8 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
     # -- 19. the dynamic service ----------------------------------------------
     dyn_launches = {}
     dyn_times = {}
-    for d, n_total in ((1, dyn["n_total"]), (2, dyn["d2_n_total"])):
+    for d, n_total, n_ticks in ((1, dyn["n_total"], dyn["ticks"]),
+                                (2, dyn["d2_n_total"], dyn["d2_ticks"])):
         DS, DU = paper_workload(seed=dyn["seed"], n_total=n_total,
                                 alpha=dyn["alpha"], d=d, device=dev)
         spec = MatchSpec(algo="itm", capacity="grow", max_pairs=dyn["cap"],
@@ -1470,7 +1497,7 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
         k0 = len(svc.pairs)
         rng = np.random.default_rng(dyn["seed"] + 100)
         ticks = []
-        for tick in range(dyn["ticks"]):
+        for tick in range(n_ticks):
             kind = "sub" if tick % 2 == 0 else "upd"
             nk = svc.s_lo.shape[0] if kind == "sub" else svc.u_lo.shape[0]
             idx = rng.choice(nk, dyn["moves"], replace=False)
@@ -1600,6 +1627,414 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
             "shapes": {"queries": m, "tree_nodes": tree.lo.numel(),
                        "visits": n_visits, "steps": steps, "per_q": per_q,
                        "K": k_count}}
+
+
+# the serving harness at the repo's full-scale churn setting
+# (benchmarks/ddm_dynamic.py:120-123): one tenant of 1e6 regions at d = 1,
+# three ticks (one warm-up) of 10,000 moves and 64 queries in batches of
+# 64, a per-query cap floor of 8192, seed 2
+SERVE = dict(tenants=1, n_total=1_000_000, ticks=3, warmup=1,
+             moves_per_tick=10_000, queries_per_tick=64, max_batch=64,
+             cap_hint=8192, seed=2, d_cycle=(1,))
+# K2's slots on Koln's hybrid tables: the first 2^26 slots of its buffer
+KOLN_K2_SLOTS = 1 << 26
+
+
+def k2_hybrid_bytes(offs, counts, starts, n_a: int, slots: int) -> int:
+    """Bytes K2 must move to fill the first ``slots`` slots from the
+    hybrid's tables (offsets saturated at ``slots``): the offset, count
+    and start of each emitter whose offset falls below ``slots`` (and the
+    offset after the last), the id-table rows those slots read, each row
+    once (an emitter's own row and its partners' window, in the
+    concatenated [class A ids; class B ids] space), and 8 B a slot
+    written."""
+    import torch
+    e = counts.numel()
+    used = int(torch.searchsorted(offs[:e], slots, side="left"))
+    c = (offs[1:used + 1] - offs[:used]).long()
+    idx = torch.arange(used, device=offs.device)
+    lo = starts[:used].long() + torch.where(idx < n_a, n_a, 0)
+    edges = torch.zeros(e + 1, dtype=torch.long, device=offs.device)
+    edges.index_add_(0, lo, torch.ones_like(lo))
+    edges.index_add_(0, lo + c, -torch.ones_like(lo))
+    rows = torch.cumsum(edges[:e], 0) > 0
+    rows[:used] |= c > 0
+    return 4 * ((used + 1) + 2 * used + int(rows.sum())) + 8 * slots
+
+
+def hsbm_count_split(plan, S, U, reps: int = REPS) -> dict:
+    """The steps of one hsbm ``plan.count()`` (``MatchPlan._count_hsbm``)
+    through the functions it calls, the card drained after each: median
+    host-clock ms over ``reps`` runs after a warm-up of ``sbm.hsbm_inputs``
+    ("inputs"), split into its NumPy geometry (``grid.hsbm_geometry``,
+    timed inside the call, "numpy") and the rest ("copies": the bounds to
+    the host, ``lb``/``width`` back), then ``sbm._hsbm_phase1`` ("pass1"),
+    ``sbm._total`` ("sum"), their sum ("steps") and ``plan.count()``
+    whole ("count"), which must return the steps' K."""
+    import torch
+    from repro_torch.core import grid, sbm
+    geometry = grid.hsbm_geometry
+    numpy_ms = []
+
+    def timed_geometry(*args, **kwargs):
+        t0 = time.perf_counter()
+        g = geometry(*args, **kwargs)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        return g
+
+    names = ("inputs", "numpy", "copies", "pass1", "sum", "steps", "count")
+    runs = []
+    grid.hsbm_geometry = timed_geometry
+    try:
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            first = len(numpy_ms)
+            t = [time.perf_counter()]
+            b, g, lb, width = sbm.hsbm_inputs(S, U, plan.spec.hsbm_ncells)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            counts = sbm._hsbm_phase1(*b, lb, width, max_pairs=1,
+                                      **g.statics())[3]
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            k = sbm._total(counts)
+            t.append(time.perf_counter())
+            k_count = plan.count(S, U)
+            t.append(time.perf_counter())
+            check(k == k_count, f"hsbm count() {k_count} != its steps {k}")
+            inputs, pass1, sum_ms, count = [(b_ - a_) * 1e3
+                                            for a_, b_ in zip(t, t[1:])]
+            geo = numpy_ms[first]
+            runs.append((inputs, geo, inputs - geo, pass1, sum_ms,
+                         inputs + pass1 + sum_ms, count))
+    finally:
+        grid.hsbm_geometry = geometry
+    return {name: statistics.median(r[i] for r in runs[1:])
+            for i, name in enumerate(names)}
+
+
+def run_slice5(dev: str, fig9: dict, koln_positions: int, window: int,
+               koln_window: int, expect_k: dict | None) -> dict:
+    """Phase 21 on ``dev``: the hybrid grid+SBM (``algo="hsbm"``) through
+    K2, K5 and K6 on its emitter-slot tables, at fig. 9 (every route, and
+    d = 2) and Koln, and its times.  Returns launches and times."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (MatchSpec, build_plan, koln_like_workload,
+                                  paper_workload, sbm)
+    from repro_torch.kernels import emit, ops, ref
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def keys(buf, m):
+        buf = buf[buf[:, 0] >= 0]
+        return torch.sort(buf[:, 0].long() * m + buf[:, 1].long()).values
+
+    # -- 21. hsbm: count() and pairs() on every route ----------------------
+    S, U = paper_workload(**fig9, device=dev)
+    n, m = S.n, U.n
+    res_s, k_sbm = build_plan(MatchSpec(algo="sbm", device=dev), n, m,
+                              1).pairs(S, U)
+    sbm_keys = keys(res_s.data, m)
+    del res_s
+    if expect_k is not None:
+        check(k_sbm == expect_k["fig9"], f"fig9 sbm K {k_sbm}")
+    plain_res, k_plain = build_plan(MatchSpec(algo="hsbm", backend="torch",
+                                              device=dev), n, m,
+                                    1).pairs(S, U)
+    plain = plain_res.data
+    check(k_plain == k_sbm, f"hsbm torch backend K {k_plain} != {k_sbm}")
+
+    emit.twopass_emit.launches = 0
+    emit.twopass_emit_streaming.launches = 0
+    emit.csr_decode_window.launches = 0
+    plan = build_plan(MatchSpec(algo="hsbm", device=dev), n, m, 1)
+    k_count = plan.count(S, U)
+    res, k_pairs = plan.pairs(S, U)
+    route_auto = ops.last_emit_route()
+    plan_st = build_plan(MatchSpec(algo="hsbm", emit_route="streaming",
+                                   device=dev), n, m, 1)
+    res_st, k_st = plan_st.pairs(S, U)
+    plan_csr = build_plan(MatchSpec(algo="hsbm", emit_route="csr",
+                                    device=dev), n, m, 1)
+    view, k_csr = plan_csr.pairs(S, U)
+    plain_h = plain.cpu().numpy()
+    nwin = 0
+    for w0, win in view.windows(chunk=window):
+        check((win == plain_h[w0:w0 + win.shape[0]]).all(),
+              f"hsbm csr window at {w0} != the plain pass 2")
+        nwin += 1
+    del plain_h
+    sync()
+    launches = {"twopass_emit (hsbm)": emit.twopass_emit.launches,
+                "twopass_emit_streaming (hsbm)":
+                    emit.twopass_emit_streaming.launches,
+                "csr_decode_window (hsbm)": emit.csr_decode_window.launches}
+    check(route_auto == "resident", f"hsbm auto took {route_auto}")
+    check(k_count == k_pairs == k_st == k_csr == k_sbm,
+          f"hsbm K count={k_count} pairs={k_pairs} streaming={k_st} "
+          f"csr={k_csr} != sbm {k_sbm}")
+    for name, buf in (("resident", res.data), ("streaming", res_st.data)):
+        check(torch.equal(buf, plain), f"hsbm {name} != the plain pass 2")
+        check(torch.equal(keys(buf, m), sbm_keys),
+              f"hsbm {name} pairs sorted != sbm pairs sorted")
+    del res_st, sbm_keys
+    print(f"[hsbm] fig9 count()={k_count} pairs() K={k_pairs} == sbm; "
+          f"auto route {route_auto}; resident (K2) and streaming (K5) "
+          f"buffers == the plain pass 2 (torch backend) and, sorted, == "
+          f"sbm; {nwin} csr windows of {window} (K6) == the plain pass 2; "
+          f"csr nbytes={view.nbytes}; launches={launches}")
+
+    S2, U2 = paper_workload(**fig9, d=2, device=dev)
+    got2 = {}
+    for algo in ("hsbm", "sbm"):
+        r2, k2 = build_plan(MatchSpec(algo=algo, device=dev), S2.n, U2.n,
+                            2).pairs(S2, U2)
+        got2[algo] = (k2, keys(r2.data, U2.n))
+    check(got2["hsbm"][0] == got2["sbm"][0]
+          and torch.equal(got2["hsbm"][1], got2["sbm"][1]),
+          "hsbm d=2 pairs != sbm pairs as sets")
+    if expect_k is not None:
+        check(got2["hsbm"][0] == expect_k["fig9_d2"], "hsbm d=2 K")
+    print(f"[hsbm] fig9 d=2 K={got2['hsbm'][0]} set-equal to sbm")
+    del S2, U2, got2
+
+    # the hybrid tables at fig. 9, for the kernel checks and times
+    b, g, lb, width = sbm.hsbm_inputs(S, U)
+    n_a, n_b = g.n_emit_s, g.n_emit_u
+    sid, uid, starts, counts, offs = sbm._hsbm_phase1(
+        *b, lb, width, max_pairs=k_sbm, **g.statics())
+    ps, pu = sid + n_a, uid + n_b
+    emit_args = (offs, counts, starts, ps, pu)
+    slots = emit.twopass_emit(*emit_args, max_pairs=k_sbm)
+    k2_err = exact_err(slots, ref.twopass_emit(*emit_args, max_pairs=k_sbm))
+    bl = emit.lane_pad(MatchSpec().block)
+    tab = emit.pack_emitter_tables(offs, counts, starts, n=n_a, m=n_b,
+                                   min_len=emit.stream_window(bl))
+    k5_err = exact_err(
+        emit.twopass_emit_streaming(tab, ps, pu, max_pairs=k_sbm, block=bl),
+        ref.twopass_emit_streaming(tab, ps, pu, max_pairs=k_sbm))
+    w_mid = k_sbm // 2
+    k6_args = (tab, ps, pu, w_mid, min(window, k_sbm - w_mid))
+    k6_err = exact_err(emit.csr_decode_window(*k6_args),
+                       ref.csr_decode_window(*k6_args))
+    remapped = emit.remap_slot_pairs(slots, sid, uid)
+    check(k2_err == k5_err == k6_err == 0,
+          f"on the hybrid tables K2/K5/K6 != plain (max err {k2_err}, "
+          f"{k5_err}, {k6_err})")
+    check(torch.equal(remapped, plain), "remapped K2 != the plain pass 2")
+    del remapped, res
+    print(f"[hsbm] {g}: E = {n_a + n_b} emitter rows "
+          f"({(n_a + n_b) / (n + m)!r} x (n+m)); K2, K5 and K6 bit-equal "
+          "to plain on the hybrid tables")
+
+    # -- Koln: count() past 2^31, and csr at cap INT32_MAX ------------------
+    SK, UK = koln_like_workload(0, n_positions=koln_positions, device=dev)
+    k_koln_sbm = sbm.sbm_count_binary(SK, UK)
+    plan_kc = build_plan(MatchSpec(algo="hsbm", device=dev), SK.n, UK.n, 1)
+    k_koln = plan_kc.count(SK, UK)
+    check(k_koln == k_koln_sbm, f"hsbm koln K {k_koln} != {k_koln_sbm}")
+    if expect_k is not None:
+        check(k_koln == expect_k["koln"], f"hsbm koln K {k_koln}")
+    kb, kg, klb, kwidth = sbm.hsbm_inputs(SK, UK)
+    ke = kg.n_emit_s + kg.n_emit_u
+    check(ops.choose_emit_route(kg.n_emit_s, kg.n_emit_u) == "resident",
+          f"koln hybrid tables ({ke} rows) do not take resident")
+    before = emit.csr_decode_window.launches
+    kview, kk = build_plan(MatchSpec(algo="hsbm", emit_route="csr",
+                                     capacity="fixed", max_pairs=INT32_MAX,
+                                     device=dev), SK.n, UK.n,
+                           1).pairs(SK, UK)
+    check(kk == k_koln and isinstance(kview, ops.HsbmCSRPairs),
+          f"hsbm koln csr K {kk} / view {type(kview).__name__}")
+    kt = sbm._hsbm_phase1(*kb, klb, kwidth, max_pairs=INT32_MAX,
+                          **kg.statics())
+    k_sid, k_uid, k_starts, k_counts, k_offs = kt
+    koln_windows = (0, (1 << 30) + 12_345, INT32_MAX - koln_window)
+    for w0 in koln_windows:
+        got = kview.decode(w0, w0 + koln_window)
+        plain_w = emit.remap_slot_pairs(
+            ref.csr_decode_window(kview.tab, kview.perm_s, kview.perm_u, w0,
+                                  koln_window), k_sid, k_uid)
+        lookup = emit.remap_slot_pairs(
+            sbm._twopass_window(k_offs, k_counts, k_starts, kview.perm_s,
+                                kview.perm_u, w0, w0 + koln_window),
+            k_sid, k_uid)
+        check(torch.equal(got, plain_w), f"hsbm koln window at {w0} != plain")
+        check(torch.equal(got, lookup),
+              f"hsbm koln window at {w0} != uncompacted lookup")
+        if expect_k is not None:
+            check(bool((got >= 0).all()), f"pad rows below K at {w0}")
+        s_i, u_i = got[:, 0].long(), got[:, 1].long()
+        check(bool(((SK.lo[s_i, 0] < UK.hi[u_i, 0])
+                    & (UK.lo[u_i, 0] < SK.hi[s_i, 0])).all()),
+              f"hsbm koln window at {w0}: pairs that do not overlap")
+    sync()
+    launches["csr_decode_window (hsbm koln)"] = (
+        emit.csr_decode_window.launches - before)
+    del kt, kview, k_offs
+    # K2 on Koln's hybrid tables, at their edge of the L2 budget: the first
+    # KOLN_K2_SLOTS slots, against the plain version
+    kp = sbm._hsbm_phase1(*kb, klb, kwidth, max_pairs=KOLN_K2_SLOTS,
+                          **kg.statics())
+    koln_args = (kp[4], kp[3], kp[2], kp[0] + kg.n_emit_s,
+                 kp[1] + kg.n_emit_u)
+    k2_koln_err = exact_err(
+        emit.twopass_emit(*koln_args, max_pairs=KOLN_K2_SLOTS),
+        ref.twopass_emit(*koln_args, max_pairs=KOLN_K2_SLOTS))
+    check(k2_koln_err == 0, f"K2 on koln's hybrid tables != plain")
+    print(f"[hsbm] koln N={SK.n + UK.n} count() K={k_koln} == sbm; {kg}: "
+          f"E = {ke}, resident bytes "
+          f"{ops.emit_route_bytes(kg.n_emit_s, kg.n_emit_u)['resident']}; "
+          f"csr at cap {INT32_MAX}: K6 windows of {koln_window} at "
+          f"{list(koln_windows)} == plain == uncompacted lookup; K2 on the "
+          f"first {KOLN_K2_SLOTS} slots == plain")
+
+    # -- times --------------------------------------------------------------
+    plan_sbm = build_plan(MatchSpec(algo="sbm", device=dev), n, m, 1)
+    times = {
+        "hsbm_count_e2e": time_ms(lambda: plan.count(S, U)),
+        "hsbm_pairs_e2e": time_ms(lambda: plan.pairs(S, U)),
+        "sbm_count_e2e": time_ms(lambda: plan_sbm.count(S, U)),
+        "sbm_pairs_e2e": time_ms(lambda: plan_sbm.pairs(S, U)),
+        "hsbm_streaming_pairs_e2e": time_ms(lambda: plan_st.pairs(S, U)),
+        "hsbm_csr_pairs_e2e": time_ms(lambda: plan_csr.pairs(S, U)),
+        "hsbm_koln_count_e2e": time_ms(lambda: plan_kc.count(SK, UK)),
+        "hsbm_pass1": time_ms(lambda: sbm._hsbm_phase1(
+            *b, lb, width, max_pairs=k_sbm, **g.statics())),
+        "hsbm_k2": time_ms(lambda: emit.twopass_emit(*emit_args,
+                                                     max_pairs=k_sbm)),
+        "hsbm_k5": time_ms(lambda: emit.twopass_emit_streaming(
+            tab, ps, pu, max_pairs=k_sbm, block=bl)),
+        "hsbm_k6_window": time_ms(lambda: emit.csr_decode_window(
+            tab, ps, pu, 0, window)),
+        "hsbm_k2_koln": time_ms(lambda: emit.twopass_emit(
+            *koln_args, max_pairs=KOLN_K2_SLOTS)),
+        "hsbm_remap": time_ms(lambda: emit.remap_slot_pairs(slots, sid,
+                                                            uid)),
+        "hsbm_plain_pass2": time_ms(lambda: sbm._hsbm_emit(
+            *b, lb, width, max_pairs=k_sbm, **g.statics())),
+    }
+    # K2 on the hybrid tables: per slot a binary search of the E + 1
+    # offsets at ~6 operations a step, plus ~12 more, as phase 8's K2
+    # bound; the bytes are what this run's slots read and write
+    e = n_a + n_b
+    k2_bound = bound_ms(k2_hybrid_bytes(offs, counts, starts, n_a, k_sbm),
+                        (6 * math.ceil(math.log2(e + 1)) + 12) * k_sbm)
+    k2k_bound = bound_ms(
+        k2_hybrid_bytes(kp[4], kp[3], kp[2], kg.n_emit_s, KOLN_K2_SLOTS),
+        (6 * math.ceil(math.log2(ke + 1)) + 12) * KOLN_K2_SLOTS)
+    print(f"[hsbm] fig9 bounds: K2 {k2_bound[0]!r} ({k2_bound[1]}), K2 on "
+          f"koln's first {KOLN_K2_SLOTS} slots {k2k_bound[0]!r} "
+          f"({k2k_bound[1]})")
+    if dev == "cuda":
+        for what, (p, R1, R2) in (("fig9", (plan, S, U)),
+                                  ("koln", (plan_kc, SK, UK))):
+            split = hsbm_count_split(p, R1, R2)
+            times.update({f"hsbm_count_{what}_{k}": v
+                          for k, v in split.items()})
+            print(f"[hsbm] {what} count() step by step, median host ms of "
+                  f"{REPS}: " + ", ".join(f"{k} {v!r}"
+                                          for k, v in split.items()))
+    del SK, UK, kp, koln_args, slots, plain, view
+    return {"launches": launches, "times": times,
+            "bounds": {"hsbm_k2": k2_bound[0], "hsbm_k2_koln": k2k_bound[0]},
+            "shapes": {"geometry": repr(g), "E": n_a + n_b, "K": k_sbm,
+                       "koln_geometry": repr(kg)}}
+
+
+def run_slice6(dev: str, serve: dict, smoke_args: tuple = ()) -> dict:
+    """Phases 22-23 on ``dev``: the serving harness at the repo's
+    full-scale churn setting with the oracle and the steady-state guard
+    on, then ``python -m repro_torch.serve --smoke`` in both drive modes
+    as subprocesses.  Returns K8's launches and the serving numbers."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.core import DDMService, MatchSpec, paper_workload
+    from repro_torch.kernels import itm as k8
+    from repro_torch.serve import batching, harness
+
+    # -- 22. serving at full scale -------------------------------------------
+    k8.itm_walk.launches = 0
+    t0 = time.perf_counter()
+    stats = harness.run_churn(**serve, warm_start=dev == "cuda", device=dev)
+    wall = time.perf_counter() - t0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = {"itm_walk (serving)": k8.itm_walk.launches}
+    check(stats["parity_checks"] > 0, "serving parity never exercised")
+    c = stats["metrics"]["tenants"]["tenant0"]["counters"]
+    numbers = {
+        "serve_p50_query_us": stats["p50_query_s"] * 1e6,
+        "serve_p99_query_us": stats["p99_query_s"] * 1e6,
+        "serve_p99_stale_query_us": stats["p99_stale_query_s"] * 1e6,
+        "serve_rebuild_p50_us": stats["rebuild_p50_s"] * 1e6,
+        "serve_rebuild_p99_us": stats["rebuild_p99_s"] * 1e6,
+    }
+    print(f"[serve] N={serve['n_total']} ticks={serve['ticks']} (warm-up "
+          f"{serve['warmup']}), {serve['moves_per_tick']} moves and "
+          f"{serve['queries_per_tick']} queries a tick: every answer == its "
+          f"snapshot's oracle ({stats['parity_checks']} parity checks), "
+          f"steady-state guard quiet; " + ", ".join(
+              f"{k} {v!r}" for k, v in numbers.items())
+          + f"; counters {c}; K8 launches={launches['itm_walk (serving)']}; "
+          f"wall {wall!r} s")
+    if dev == "cuda":
+        # one query batch at the same scale, step by step: the tenant's
+        # first snapshot and one burst's boxes of each target, padded
+        S, U = paper_workload(seed=serve["seed"], n_total=serve["n_total"],
+                              alpha=5.0, device=dev)
+        svc = DDMService(S, U, spec=MatchSpec(
+            algo="itm", capacity="grow", max_pairs=serve["cap_hint"],
+            device=dev))
+        snap = svc.snapshot()
+        rng = np.random.default_rng(serve["seed"] + 100)
+        blo, bhi = harness.make_query_boxes(rng, serve["max_batch"], 1)
+        q_lo = torch.from_numpy(blo).to(dev)
+        q_hi = torch.from_numpy(bhi).to(dev)
+        tree, opp = snap.target("sub")
+        cap = serve["cap_hint"]
+        ids, _ = svc.query_snapshot(snap, "sub", blo, bhi)
+        hits = int((ids >= 0).sum())
+        split = {
+            "batch_query": time_ms(lambda: svc.query_snapshot(
+                snap, "sub", blo, bhi)),
+            "batch_k8_count": time_ms(lambda: k8.itm_walk(
+                tree, q_lo[:, 0], q_hi[:, 0])),
+            "batch_k8_pairs": time_ms(lambda: k8.itm_walk(
+                tree, q_lo[:, 0], q_hi[:, 0], cap)),
+            "batch_ids_to_host": time_ms(lambda: ids.cpu()),
+            "batch_pad_boxes": time_ms(lambda: batching.pad_boxes(
+                [], 1, serve["max_batch"])),
+        }
+        numbers.update({f"serve_{k}_us": v * 1e3 for k, v in split.items()})
+        print(f"[serve] one batch of {serve['max_batch']} boxes on the "
+              f"1e6-region snapshot ({hits} hits, cap {cap}), median ms of "
+              f"{REPS}: " + ", ".join(f"{k} {v!r}" for k, v in split.items()))
+        del svc, snap, S, U, ids
+
+    # -- 23. the entry point, both drive modes --------------------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for mode in ((), ("--threaded",)):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serve", "--smoke",
+             *smoke_args, *mode], capture_output=True, text=True,
+            timeout=600, env=env, cwd=ROOT)
+        lines = out.stdout.strip().splitlines()
+        check(out.returncode == 0 and lines and lines[-1] == "SERVE_SMOKE_OK",
+              f"python -m repro_torch.serve --smoke {' '.join(mode)} exited "
+              f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        rec = json.loads(out.stdout[out.stdout.index("{"):
+                                    out.stdout.rindex("}") + 1])
+        print(f"[serve-smoke] {' '.join(mode) or '(pump)'}: exit 0, "
+              f"SERVE_SMOKE_OK, {rec['parity_checks']} parity checks, p50 "
+              f"{rec['p50_query_us']} us, p99 {rec['p99_query_us']} us, wall "
+              f"{time.perf_counter() - t0!r} s")
+    return {"launches": launches, "times": numbers}
 
 
 HOST_CALLS = 2000
@@ -1764,8 +2199,11 @@ def main() -> int:
     out3 = run_slice3("cuda", ZAMBA2)
     host_phase(card)
     out4 = run_slice4("cuda", FIG9, 541_222, DYN, expect)
+    out5 = run_slice5("cuda", FIG9, 541_222, WINDOW, KOLN_WINDOW, expect)
+    out6 = run_slice6("cuda", SERVE)
     for kname, count in {**out["launches"], **out2["launches"],
-                         **out3["launches"], **out4["launches"]}.items():
+                         **out3["launches"], **out4["launches"],
+                         **out5["launches"], **out6["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
@@ -1783,7 +2221,17 @@ def main() -> int:
     sh4 = out4["shapes"]
     for key, ms in out4["times"].items():
         print(f"[time] {key}: {ms!r} ms (median of {REPS}, ticks of "
-              f"{DYN['ticks']}; {sh4}) on {card}")
+              f"{DYN['ticks']} at d = 1, {DYN['d2_ticks']} at d = 2; "
+              f"{sh4}) on {card}")
+    sh5 = out5["shapes"]
+    for key, ms in out5["times"].items():
+        bound = out5["bounds"].get(key)
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}; "
+              + (f"bound {bound!r} ms; " if bound is not None else "")
+              + f"{sh5}) on {card}")
+    for key, us in out6["times"].items():
+        print(f"[time] {key}: {us!r} us (serving at {SERVE}: percentiles "
+              f"over the steady ticks, batch_* medians of {REPS}) on {card}")
     print(json.dumps({"kernels": out["kernels"] + out2["kernels"]
                       + out3["kernels"] + out4["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 PyTorch), mirroring ``repro.core`` for what is ported so far:
 
     spec = MatchSpec(algo="sbm",        # sbm | sbm_chunked | sbm_binary
-                                        # | itm | bfm | gbm
+                                        # | hsbm | itm | bfm | gbm
                      backend="cuda",    # cuda (hand kernels) | torch
                      capacity="exact",  # exact | fixed | grow
                      emit_route="auto", # resident | streaming | csr | xla
@@ -21,11 +21,11 @@ Public surface:
     PairsResult / DensePairs — the pair-enumeration result contract
     Regions, make_regions, paper_workload, koln_like_workload
     block_mask / pairs_to_set (repro_torch.core.dd_match)
-    the matchers: sbm, itm (the interval tree), brute (BFM), grid (GBM)
+    the matchers: sbm (flat and hybrid grid+SBM), itm (the interval
+    tree), brute (BFM), grid (GBM and the hybrid's geometry)
     DDMService / DDMSnapshot / StoreView (repro_torch.core.dynamic)
 
-Not ported yet: ``hsbm`` and the distributed backend (ROADMAP Queue 1
-items 7 and 9).
+Not ported yet: the distributed backend (ROADMAP Queue 1 item 9).
 """
 from .regions import (Regions, make_regions, paper_workload,
                       koln_like_workload, intersect_1d, intersect_dd)

@@ -1,9 +1,9 @@
 """MatchSpec → MatchPlan engine — one plan/execute API for the port.
 
 The port's counterpart of the JAX package's ``core/engine.py``, for the
-sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``), the
-interval tree (``itm``) and the paper's two baselines, brute force
-(``bfm``) and the grid (``gbm``):
+sort-based family (``sbm``, ``sbm_chunked``, ``sbm_binary``), the hybrid
+grid+SBM (``hsbm``), the interval tree (``itm``) and the paper's two
+baselines, brute force (``bfm``) and the grid (``gbm``):
 
     spec = MatchSpec(algo="sbm")                 # backend="cuda", device="cuda"
     plan = build_plan(spec, n_sub=S.n, n_upd=U.n, d=S.d)
@@ -16,7 +16,7 @@ Backends
 --------
 ``cuda``   the counterpart of ``pallas``: sorts and searchsorted are
            library calls; the SBM sweep (``count``, K1), the pass-2 emit
-           (``pairs``: K2, K5 or K6 by emit route), the BFM tile
+           (``pairs`` of sbm and hsbm: K2, K5 or K6 by emit route), the BFM tile
            count and mask (K3, K4) and the interval tree walk (K8) are
            hand-written kernels (``kernels/``).  The default.
 ``torch``  the counterpart of ``xla``: the plain tensor code of
@@ -34,7 +34,11 @@ every path but the ``csr`` emit route, which returns the lazy
 ``kernels.ops.CSRPairs`` view (O(n+m) device memory, windows decoded on
 demand).  ``gbm`` counts on its grid (1-D; d > 1 counts through pairs)
 and enumerates through BFM, as the reference does; ``mask()`` is BFM's
-mask for every algorithm.
+mask for every algorithm.  ``hsbm`` measures its grid geometry on the
+host per call (``core.grid.hsbm_geometry``, one copy of the dim-0
+bounds to the host), counts from its pass 1 alone on both backends,
+and emits through the plain hybrid pass 2 (``torch``) or the sbm emit
+routes on its emitter-slot tables (``cuda``).
 
 Capacity policies (buffer sizing for ``pairs()``)
 -------------------------------------------------
@@ -56,10 +60,11 @@ the binary-search per-subscription counts, and filters dimensions
 is rejected for d > 1.  Zero-region inputs give K = 0, an all-−1 buffer
 and an all-False mask without launching a kernel.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: ``hsbm`` and the distributed backend.  PyTorch runs
-eagerly, so there is no jit cache and no trace counter (the recompile
-audit is item 12).
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
+Queue 1 item: the distributed backend.  PyTorch runs eagerly, so there
+is no jit cache and no trace counter; what stands in for a retrace is a
+capacity a plan resolves for the first time (a new buffer shape), which
+``new_capacities`` logs for ``repro_torch.analysis.steady``.
 """
 from __future__ import annotations
 
@@ -82,7 +87,6 @@ EMIT_ROUTES = ("auto", "resident", "streaming", "csr", "xla")
 
 # what is not ported yet, and where the ROADMAP queues it
 _NOT_PORTED = {
-    "hsbm": "ROADMAP Queue 1 item 7",
     "distributed": "ROADMAP Queue 1 item 9",
 }
 _SBM_FAMILY = ("sbm", "sbm_chunked", "sbm_binary")
@@ -120,6 +124,7 @@ class MatchSpec:
     block: int = 4096              # streaming emit (K5) slots per CTA
     emit_route: str = "auto"       # pass-2 route (kernels.ops)
     emit_budget: int | None = None  # emit L2 byte budget (None=default)
+    hsbm_ncells: int | None = None  # hsbm grid override (None=measured)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -160,7 +165,11 @@ class MatchPlan:
 
     Holds the resolved device and the memoized capacities of the
     ``exact``/``grow`` policies (``pairs()``, the d > 1 candidates and
-    ``query()``).
+    ``query()``).  ``new_capacities``, an insertion-ordered dict, gains
+    the key ``(buffer, capacity)`` each time a resolver returns a
+    capacity this plan has not returned before for that buffer: a new
+    buffer shape, which
+    ``repro_torch.analysis.steady`` forbids in steady state.
     """
 
     def __init__(self, spec: MatchSpec, n_sub: int, n_upd: int, d: int):
@@ -180,6 +189,7 @@ class MatchPlan:
         self._cap: int | None = None        # memoized output capacity
         self._cand_cap: int | None = None   # memoized dim-0 candidate cap
         self._query_cap = max(spec.max_pairs or 1, 1)   # query() grow cap
+        self.new_capacities: dict[tuple[str, int], None] = {}
 
     def __repr__(self) -> str:
         s = self.spec
@@ -200,25 +210,30 @@ class MatchPlan:
                     f"{self.device}; build the regions with "
                     f"device={self.device.type!r}")
 
+    def _note(self, buffer: str, cap: int) -> int:
+        """Log ``cap`` in ``new_capacities`` when it is new for ``buffer``."""
+        self.new_capacities.setdefault((buffer, cap))
+        return cap
+
     def _resolve_cap(self, exact_k: int) -> int:
         """Output-buffer capacity under the plan's policy."""
         pol = self.spec.capacity
         if pol == "fixed":
-            return max(self.spec.max_pairs, 1)
+            return self._note("pairs", max(self.spec.max_pairs, 1))
         if pol == "exact":
             self._cap = max(exact_k, 1)
-            return self._cap
-        cap = _pow2(max(exact_k, self.spec.max_pairs or 1, 1))
-        self._cap = max(self._cap or 1, cap)
-        return self._cap
+        else:
+            cap = _pow2(max(exact_k, self.spec.max_pairs or 1, 1))
+            self._cap = max(self._cap or 1, cap)
+        return self._note("pairs", self._cap)
 
     def _resolve_cand_cap(self, exact_c: int) -> int:
         """Dim-0 candidate capacity (must hold EVERY dim-0 overlap)."""
         if self.spec.capacity == "grow":
             self._cand_cap = max(self._cand_cap or 1, _pow2(max(exact_c, 1)))
-            return self._cand_cap
-        self._cand_cap = max(exact_c, 1)
-        return self._cand_cap
+        else:
+            self._cand_cap = max(exact_c, 1)
+        return self._note("candidates", self._cand_cap)
 
     def _project(self, R: Regions) -> Regions:
         return Regions(R.lo[:, :1], R.hi[:, :1])
@@ -249,6 +264,8 @@ class MatchPlan:
         spec = self.spec
         algo = spec.algo
         args = (S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0])
+        if algo == "hsbm":
+            return self._count_hsbm(S, U)
         if spec.backend == "cuda" and algo in ("sbm", "sbm_chunked"):
             from ..kernels import ops
             return ops.sbm_count_cuda(S, U)
@@ -267,6 +284,15 @@ class MatchPlan:
         if algo == "gbm":
             return grid.gbm_count(S, U, ncells=spec.ncells)
         raise AssertionError(algo)
+
+    def _count_hsbm(self, S: Regions, U: Regions) -> int:
+        """Exact K from the hybrid pass 1 alone (no emission), the same
+        arithmetic on both backends: its unclipped per-emitter counts
+        summed in int64."""
+        b, g, lb, width = sbm.hsbm_inputs(S, U, self.spec.hsbm_ncells)
+        counts = sbm._hsbm_phase1(*b, lb, width, max_pairs=1,
+                                  **g.statics())[3]
+        return sbm._total(counts)
 
     # -- pair enumeration ---------------------------------------------------
     def pairs(self, S: Regions, U: Regions):
@@ -313,8 +339,9 @@ class MatchPlan:
             # GBM degenerates to BFM for enumeration (paper: per-cell
             # matching IS brute force; pair identity needs no grid)
             return self._pairs_bfm(S, U, out_cap)
-        dim0 = (self._pairs_itm_dim0 if self.spec.algo == "itm"
-                else self._pairs_sbm_dim0)
+        dim0 = {"itm": self._pairs_itm_dim0,
+                "hsbm": self._pairs_hsbm_dim0}.get(self.spec.algo,
+                                                    self._pairs_sbm_dim0)
         cand, k = dim0(S, U, out_cap if self.d == 1
                        else self._cand_bound(S, U))
         if self.d == 1:
@@ -343,6 +370,18 @@ class MatchPlan:
                                           budget=spec.emit_budget,
                                           dense_only=self.d > 1)
         return sbm.sbm_pairs(S0, U0, cap)
+
+    def _pairs_hsbm_dim0(self, S: Regions, U: Regions, cap: int):
+        spec = self.spec
+        S0, U0 = self._project(S), self._project(U)
+        if spec.backend == "cuda":
+            from ..kernels import ops
+            return ops.hsbm_pairs_cuda(S0, U0, cap, ncells=spec.hsbm_ncells,
+                                       route=spec.emit_route,
+                                       block=spec.block,
+                                       budget=spec.emit_budget,
+                                       dense_only=self.d > 1)
+        return sbm.hsbm_pairs(S0, U0, cap, ncells=spec.hsbm_ncells)
 
     # -- ITM: the tree walk, K8 on the cuda backend ---------------------------
     def _itm_order(self, q_lo):
@@ -385,13 +424,19 @@ class MatchPlan:
         (``kernels.ops.choose_emit_route``) applied to this plan's
         problem shape under ``emit_budget``.  ``None`` for the torch
         backend and for algorithms that do not reach the two-pass emit.
-        For d > 1 ``auto`` never resolves to ``csr``.
+        For d > 1 ``auto`` never resolves to ``csr``.  For ``hsbm`` under
+        ``auto`` it is ``None``: the route follows the grid geometry
+        measured at each call (``kernels.ops.last_emit_route()`` names
+        the route a call took).
         """
         spec = self.spec
-        if spec.backend != "cuda" or spec.algo not in _SBM_FAMILY:
+        if (spec.backend != "cuda"
+                or spec.algo not in _SBM_FAMILY + ("hsbm",)):
             return None
         if spec.emit_route != "auto":
             return spec.emit_route
+        if spec.algo == "hsbm":
+            return None
         from ..kernels import ops
         return ops.choose_emit_route(self.n_sub, self.n_upd,
                                      budget=spec.emit_budget,
@@ -477,11 +522,11 @@ class MatchPlan:
         need = max(need, 1)
         pol = self.spec.capacity
         if pol == "fixed":
-            return max(self.spec.max_pairs, 1)
+            return self._note("query", max(self.spec.max_pairs, 1))
         if pol == "exact":
-            return need
+            return self._note("query", need)
         self._query_cap = max(self._query_cap, _pow2(need))
-        return self._query_cap
+        return self._note("query", self._query_cap)
 
 
 # ---------------------------------------------------------------------------

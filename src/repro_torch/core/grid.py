@@ -1,8 +1,8 @@
 """Grid-Based Matching (GBM) — paper Algorithm 3, race-free form, in torch.
 
-The port's counterpart of the GBM part of the JAX package's
-``core/grid.py`` (the hybrid grid+SBM geometry waits for ROADMAP Queue 1
-item 7).  As there:
+The port's counterpart of the JAX package's ``core/grid.py``: GBM, and
+the host-measured geometry of the hybrid grid+SBM (``hsbm_geometry``).
+For GBM, as there:
 
 * the scatter race on per-cell lists becomes a two-pass bucketing:
   expand (region → overlapped cell) incidences, stable-sort by cell,
@@ -17,6 +17,8 @@ as the reference computes them, so both packages bucket identically.
 This is plain torch on any device; the reference has no kernel here.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -132,3 +134,112 @@ def gbm_count(S: Regions, U: Regions, ncells: int = 3000,
     counts = _gbm_cell_counts(S, U, lb_t, width_t, ncells, cap_s, cap_u,
                               span_s, span_u, chunk)
     return int(counts.sum())
+
+
+# ---------------------------------------------------------------------------
+# Hybrid grid+SBM (hsbm) geometry — host-side measurement
+# ---------------------------------------------------------------------------
+#
+# The hybrid replaces flat SBM's global pass-1 sorts by a coarse grid
+# bucketing and per-cell sorts (``core.sbm._hsbm_phase1``).  The grid is
+# only a pre-filter: matching within and across cell boundaries stays
+# SBM's searchsorted-range argument, so hsbm is exact like SBM.  The
+# geometry (cell count, per-cell capacity, boundary-suffix width) is
+# measured on the host from the data, in NumPy, exactly as the reference
+# measures it, and rounded to coarse quanta so that same-distribution
+# data keeps its buffer shapes.
+
+_HSBM_TARGET_OCC = 1280     # aim for ~this many regions per cell pair
+_HSBM_MAX_NCELLS = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class HsbmGeometry:
+    """Grid geometry of the hybrid pass 1.
+
+    ``ncells``/``cap_s``/``cap_u``/``suf_s``/``suf_u`` size the per-cell
+    tables (python ints); ``lb``/``width`` are the grid origin and cell
+    width (python floats, handed to the device as float32 scalars).
+    """
+
+    ncells: int
+    cap_s: int
+    suf_s: int
+    cap_u: int
+    suf_u: int
+    lb: float
+    width: float
+
+    @property
+    def n_emit_s(self) -> int:
+        """Rows of the padded S emitter table (natives + spill suffix)."""
+        return self.ncells * (self.cap_s + self.suf_s)
+
+    @property
+    def n_emit_u(self) -> int:
+        return self.ncells * (self.cap_u + self.suf_u)
+
+    def statics(self) -> dict:
+        return dict(ncells=self.ncells, cap_s=self.cap_s, suf_s=self.suf_s,
+                    cap_u=self.cap_u, suf_u=self.suf_u)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def hsbm_geometry(s_lo, s_hi, u_lo, u_hi,
+                  ncells: int | None = None) -> HsbmGeometry:
+    """Measure the hybrid grid geometry on the host (NumPy inputs).
+
+    ``ncells=None`` picks pow2_ceil((n+m)/1280) cells, clamped so each
+    cell is at least one max-region-length wide (then a region's lo-cell
+    and the cell left of it are the only cells whose natives can reach
+    it, which the boundary suffix of ``sbm._hsbm_side_tables`` relies
+    on).  Per-cell native capacity is measured with the float32
+    arithmetic the device uses (the same cell for every region); the
+    spill-suffix width in float64 with slack, so rounding can only widen
+    it.  Bit-equal to the reference's ``grid.hsbm_geometry``.
+    """
+    s_lo = np.asarray(s_lo, np.float32)
+    s_hi = np.asarray(s_hi, np.float32)
+    u_lo = np.asarray(u_lo, np.float32)
+    u_hi = np.asarray(u_hi, np.float32)
+    n, m = s_lo.shape[0], u_lo.shape[0]
+    lb = float(min(s_lo.min(), u_lo.min()))
+    top = float(max(s_hi.max(), u_hi.max()))
+    max_len64 = float(max((s_hi.astype(np.float64) - s_lo).max(),
+                          (u_hi.astype(np.float64) - u_lo).max()))
+    if ncells is None:
+        ncells = _pow2_ceil(max(1, (n + m) // _HSBM_TARGET_OCC))
+    span_bound = (max(1, int((top - lb) / max_len64))
+                  if max_len64 > 0 and top > lb else 1)
+    nc = max(1, min(int(ncells), span_bound, _HSBM_MAX_NCELLS))
+    slack = max(abs(lb), abs(top)) * 2.0 ** -20 + 1e-300
+
+    def one_side(lo, width):
+        c = np.floor((lo - np.float32(lb)) / np.float32(width))
+        c = np.minimum(c.astype(np.int64), nc - 1)
+        occ = np.bincount(c, minlength=nc)
+        cap = max(64, -(-int(occ.max()) // 64) * 64)
+        # a region native to cell c-1 can reach cell c iff lo >= cell c's
+        # left edge - max_len; count those per cell, with float64 slack
+        thresh = (lb + (c + 1) * width) - max_len64 - slack
+        sufc = np.bincount(c[lo.astype(np.float64) >= thresh], minlength=nc)
+        suf = max(8, -(-int(sufc.max()) // 8) * 8)
+        return cap, suf
+
+    while True:
+        # the (1 + 1e-6) guard keeps floor((top - lb)/width) <= nc when
+        # the division is redone in float32 on the device
+        width = (top - lb) / nc * (1 + 1e-6) if top > lb else 1.0
+        cap_s, suf_s = one_side(s_lo, width)
+        cap_u, suf_u = one_side(u_lo, width)
+        rows = nc * (cap_s + suf_s + cap_u + suf_u)
+        # blow-up guard: on skewed data the per-cell maximum times ncells
+        # can dwarf n+m; halve the grid until the emitter tables stay
+        # within 4x the input (which also keeps shifted ids in int32)
+        if nc == 1 or rows <= max(4 * (n + m), 1 << 16):
+            break
+        nc //= 2
+    return HsbmGeometry(nc, cap_s, suf_s, cap_u, suf_u, lb, width)

@@ -1,8 +1,7 @@
 """Sort-Based Matching — paper Algorithms 4/6/7, as plain torch.
 
-The port's counterpart of the JAX package's ``core/sbm.py`` (1-D flat
-SBM; the hybrid grid+SBM waits for ROADMAP Queue 1 item 7).  For
-counting, the sweep's active sets collapse to integers, so the sweep is
+The port's counterpart of the JAX package's ``core/sbm.py``: 1-D flat
+SBM and the hybrid grid+SBM (``hsbm_pairs``).  For counting, the sweep's active sets collapse to integers, so the sweep is
 a prefix sum over the lex-sorted endpoint stream:
 
 * ``sbm_count_sweep``   — one lex-sort + one cumsum;
@@ -19,7 +18,10 @@ held against (``kernels/ref.py``).
 
 Bit-identity with the JAX package rests on sorting exactly as it does:
 ``jnp.argsort`` and ``jnp.lexsort`` are stable, ``torch.argsort`` is
-not unless asked, so every sort here passes ``stable=True``.
+not unless asked, so every sort here passes ``stable=True``.  The
+hybrid's per-cell key sort is unstable in the reference, so its slot
+order is not defined there; the port sorts stably, and hsbm pairs agree
+with the reference as sets, with K and the per-cell counts exact.
 
 Endpoint ordering: half-open intervals require upper endpoints to be
 processed *before* lower endpoints at equal coordinate, so ``[a,b)`` and
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from . import grid
 from .regions import Regions
 
 _I32 = torch.int32
@@ -298,3 +301,183 @@ def sbm_pairs(S: Regions, U: Regions, max_pairs: int):
     pairs, cnt_a, cnt_b = _twopass_emit(
         S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0], max_pairs)
     return pairs, _total(cnt_a) + _total(cnt_b)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid grid+SBM (hsbm) — bucketed pass 1 feeding the same emit machinery
+# ---------------------------------------------------------------------------
+#
+# Pass 1 of the flat path sorts every region globally.  The hybrid buckets
+# regions by the grid cell of their lo (cell width >= the longest region,
+# ``grid.hsbm_geometry``) and runs the class A / class B searchsorted
+# ranges per cell, over (ncells, cap) rows:
+#
+#   * a pair's max(lo) cell is the partner's own cell or the one right of
+#     it, so each cell's emitter table is [natives | boundary suffix]: the
+#     suffix repeats the tail of cell c-1 whose regions can reach cell c;
+#   * a pair is counted where the *partner* is native, exactly once.
+#
+# The per-emitter counts then feed the flat path's offset scan and pass 2:
+# the plain slot loop below, or K2 / K5 / K6 (``kernels.ops``) with the
+# shifted id tables in the permutations' place.
+
+_I32_MAX = 2 ** 31 - 1
+
+
+def _sortable_bits(x: torch.Tensor) -> torch.Tensor:
+    """Monotone float32 -> int32 map (IEEE-754 total order): the
+    reference's ``INT32_MIN - b`` for negative patterns ``b``, written as
+    ``-(b & INT32_MAX)`` so nothing overflows; -0.0 and +0.0 both map to 0."""
+    b = x.contiguous().view(_I32)
+    return torch.where(b < 0, -(b & _I32_MAX), b)
+
+
+def _hsbm_side_tables(lo, hi, lb, width, ncells: int, cap: int, suf: int):
+    """Bucket one side into per-cell sorted tables.
+
+    Returns ``(nat_bits, emit_bits, emit_ids)``: ``nat_bits`` is the
+    (ncells, cap) sortable-bits lo table of each cell's natives (pads
+    INT32_MAX, at the row end); ``emit_bits``/``emit_ids`` append ``suf``
+    boundary-suffix columns repeated from the tail of the previous cell
+    (ids are region indices, -1 pads).  ``lb``/``width`` are float32
+    tensors on ``lo``'s device: the cell is ``floor((lo - lb) / width)``
+    in float32, as ``grid.hsbm_geometry`` measured it.
+    """
+    n = lo.shape[0]
+    dev = lo.device
+    key, perm = torch.sort(_sortable_bits(lo), stable=True)
+    cells = torch.floor((lo[perm] - lb) / width).to(_I32).clamp_(0,
+                                                                 ncells - 1)
+    perm = perm.to(_I32)
+    # cells is monotone in sorted lo, so per-cell runs are contiguous
+    starts = torch.searchsorted(
+        cells, torch.arange(ncells, dtype=_I32, device=dev), out_int32=True)
+    occ = torch.cat([starts[1:], starts.new_full((1,), n)]) - starts
+    j = torch.arange(cap, dtype=_I32, device=dev)[None, :]
+    nat_valid = j < occ[:, None]
+    gi = (starts[:, None] + j).clamp_(0, n - 1)
+    nat_bits = torch.where(nat_valid, key[gi], _I32_MAX)
+    nat_ids = torch.where(nat_valid, perm[gi], -1)
+    # boundary suffix: the last ``suf`` natives of cell c-1 (none for 0)
+    k = torch.arange(suf, dtype=_I32, device=dev)[None, :]
+    pocc = torch.roll(occ, 1)
+    pocc[0] = 0
+    pstart = torch.roll(starts, 1)
+    pstart[0] = 0
+    s_exists = ((pocc[:, None] - suf + k >= 0)
+                & (torch.arange(ncells, device=dev)[:, None] > 0))
+    sgi = (pstart[:, None] + pocc[:, None] - suf + k).clamp_(0, n - 1)
+    sp_bits = torch.where(s_exists, key[sgi], _I32_MAX)
+    sp_ids = torch.where(s_exists, perm[sgi], -1)
+    return (nat_bits, torch.cat([nat_bits, sp_bits], 1),
+            torch.cat([nat_ids, sp_ids], 1))
+
+
+def _hsbm_phase1(s_lo, s_hi, u_lo, u_hi, lb, width, *, ncells: int,
+                 cap_s: int, suf_s: int, cap_u: int, suf_u: int,
+                 max_pairs: int):
+    """Hybrid pass 1: per-emitter counts and slot offsets.
+
+    Emitters are the flattened per-cell tables, S side first:
+    ``n_emit_s = ncells·(cap_s+suf_s)`` class-A emitters (each scans a
+    window of its cell's U natives), then ``n_emit_u`` class-B emitters
+    (a window of S natives).  Returns ``(sid, uid, starts, counts,
+    offs)``, int32: ``sid``/``uid`` map emitter rows to region indices
+    (-1 pads), ``starts`` are window starts in the opposite side's
+    flattened table, ``counts`` the unclipped per-emitter counts and
+    ``offs`` the (E+1,) exclusive offsets saturated at ``max_pairs``
+    (every entry, the first included; an int64 cumsum, so no int32 wrap
+    past 2^30 as in the reference's ``min(a + b, lim)`` scan).
+    """
+    n, m = s_lo.shape[0], u_lo.shape[0]
+    dev = s_lo.device
+    s_nat, s_emit, s_ids = _hsbm_side_tables(s_lo, s_hi, lb, width, ncells,
+                                             cap_s, suf_s)
+    u_nat, u_emit, u_ids = _hsbm_side_tables(u_lo, u_hi, lb, width, ncells,
+                                             cap_u, suf_u)
+
+    def ss(rows, vals, right=False):
+        return torch.searchsorted(rows, vals, right=right, out_int32=True)
+
+    # class A: u.lo in [s.lo, s.hi) — a window of U natives per S emitter
+    s_emit_hi = torch.where(s_ids >= 0, s_hi[s_ids.clamp(0, n - 1)],
+                            float("inf"))
+    aA = ss(u_nat, s_emit)
+    cnt_a = (ss(u_nat, _sortable_bits(s_emit_hi)) - aA).clamp_(min=0)
+    # class B: u.lo < s.lo < u.hi — right side excludes s.lo == u.lo
+    u_emit_hi = torch.where(u_ids >= 0, u_hi[u_ids.clamp(0, m - 1)],
+                            float("-inf"))
+    bB = ss(s_nat, u_emit, right=True)
+    cnt_b = (ss(s_nat, _sortable_bits(u_emit_hi)) - bB).clamp_(min=0)
+    # window starts into the opposite side's flattened emitter table (row
+    # stride natives + suffix); windows only cover the native prefix
+    rows = torch.arange(ncells, dtype=_I32, device=dev)[:, None]
+    starts = torch.cat([(aA + rows * (cap_u + suf_u)).reshape(-1),
+                        (bB + rows * (cap_s + suf_s)).reshape(-1)])
+    counts = torch.cat([cnt_a.reshape(-1), cnt_b.reshape(-1)])
+    incl = torch.cumsum(counts, 0, dtype=torch.int64).clamp_(max=max_pairs)
+    offs = torch.cat([torch.zeros(1, dtype=_I32, device=dev), incl.to(_I32)])
+    return s_ids.reshape(-1), u_ids.reshape(-1), starts, counts, offs
+
+
+def _hsbm_emit(s_lo, s_hi, u_lo, u_hi, lb, width, *, ncells: int,
+               cap_s: int, suf_s: int, cap_u: int, suf_u: int,
+               max_pairs: int):
+    """Plain pass 2 of the hybrid: ``(pairs (max_pairs, 2), counts)``.
+
+    The flat path's slot arithmetic (``_twopass_window``), with emitter
+    and partner identities read through ``sid``/``uid``; ``counts`` is
+    the unclipped per-emitter vector for the exact int64 K.
+    """
+    sid, uid, starts, counts, offs = _hsbm_phase1(
+        s_lo, s_hi, u_lo, u_hi, lb, width, ncells=ncells, cap_s=cap_s,
+        suf_s=suf_s, cap_u=cap_u, suf_u=suf_u, max_pairs=max_pairs)
+    n_a, n_b = sid.shape[0], uid.shape[0]
+    t = torch.arange(max_pairs, dtype=_I32, device=offs.device)
+    e = (torch.searchsorted(offs, t, right=True, out_int32=True)
+         - 1).clamp_(max=n_a + n_b - 1)
+    j = t - offs[e]
+    valid = (j >= 0) & (j < counts[e])
+    is_a = e < n_a
+    r = starts[e] + j
+    s_idx = torch.where(is_a, sid[e.clamp(max=n_a - 1)],
+                        sid[r.clamp(0, n_a - 1)])
+    u_idx = torch.where(is_a, uid[r.clamp_(0, n_b - 1)],
+                        uid[(e - n_a).clamp_(0, n_b - 1)])
+    pairs = torch.stack([torch.where(valid, s_idx, -1),
+                         torch.where(valid, u_idx, -1)], 1)
+    return pairs, counts
+
+
+def hsbm_inputs(S: Regions, U: Regions, ncells: int | None = None):
+    """Dim-0 bounds of S and U, the measured ``grid.HsbmGeometry`` and
+    its ``(lb, width)`` as float32 tensors on the regions' device.
+
+    One copy of the four bound vectors to the host feeds the NumPy
+    geometry; one copy back carries ``lb`` and ``width``.
+    """
+    b = (S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0])
+    host = torch.cat(b).cpu().numpy()
+    n, m = S.n, U.n
+    g = grid.hsbm_geometry(host[:n], host[n:2 * n], host[2 * n:2 * n + m],
+                           host[2 * n + m:], ncells=ncells)
+    lw = torch.tensor([g.lb, g.width], dtype=torch.float32, device=S.device)
+    return b, g, lw[0], lw[1]
+
+
+def hsbm_pairs(S: Regions, U: Regions, max_pairs: int,
+               ncells: int | None = None):
+    """Enumerate 1-D overlaps through the hybrid grid+SBM (plain pass 2).
+
+    Same contract as ``sbm_pairs`` (-1-padded buffer, exact K), another
+    pass 1 and a cell-major emission order.  The geometry is measured on
+    the host per call; ``ncells`` overrides the heuristic cell count.
+    """
+    assert S.d == 1
+    if S.n == 0 or U.n == 0:
+        return torch.full((max_pairs, 2), -1, dtype=_I32,
+                          device=S.device), 0
+    b, g, lb, width = hsbm_inputs(S, U, ncells)
+    pairs, counts = _hsbm_emit(*b, lb, width, max_pairs=max_pairs,
+                               **g.statics())
+    return pairs, _total(counts)

@@ -9,6 +9,8 @@ hosts with no ``nvcc`` and no card.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 An entry point that takes no arguments is a constant of its library
 (a tile size): ``_open`` reads each once, into ``lib.const``.
+``load_log`` names every library this process has built or loaded, in
+order (``repro_torch.analysis.steady`` watches it).
 
 A missing card, a missing ``nvcc``, a failed compile or a failed load
 raises ``RuntimeError``; there is no fallback.
@@ -84,6 +86,7 @@ HEADERS = {"emit": ("emit_tile.cuh",), "emit_stream": ("emit_tile.cuh",)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+load_log: list[str] = []
 
 
 def _nvcc() -> str:
@@ -168,6 +171,7 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, ctypes.CDLL]:
                         job[0].wait()
             for n, (target, _) in jobs.items():
                 _libs[n] = _open(n, target)
+                load_log.append(n)
         return {n: _libs[n] for n in names}
 
 

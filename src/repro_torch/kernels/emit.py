@@ -54,6 +54,13 @@ the reference's ``1 << 30``: pass 1 saturates offsets at ``max_pairs``,
 which may reach INT32_MAX, and above 2³⁰ slots pads at ``1 << 30`` would
 sit below real offsets and break the search (ROADMAP Queue 3).
 
+The hybrid grid+SBM (``algo="hsbm"``) runs all three kernels unchanged
+on its emitter-slot tables: the flattened per-cell emitter rows take the
+place of the n and m emitters and the shifted id tables ``sid + n_a`` /
+``uid + n_b`` the place of the permutations; ``remap_slot_pairs`` then
+maps the slot-space halves back to region ids (plain tensor code, as the
+reference's is ``jnp``).
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 its plain version (``ref``) for CPU tensors; ``max_pairs == 0`` /
 ``nslots == 0`` return an empty ``(0, 2)`` buffer without a launch.
@@ -255,6 +262,26 @@ def csr_decode_window(tab, perm_s, perm_u, w0: int,
     _build.check(lib, "csr_decode", rc)
     csr_decode_window.launches += 1
     return out
+
+
+def remap_slot_pairs(pairs, sid, uid) -> torch.Tensor:
+    """Map slot-space pair halves back to region ids (hsbm).
+
+    ``sid``/``uid`` are the hybrid's id tables, one entry per emitter row
+    (``n_a``/``n_b`` of them).  A kernel-written half is either an
+    own-emitter slot (a class-A s half ``< n_a``, a class-B u half
+    ``< n_b``), read through ``sid``/``uid``, or a gathered shifted id
+    (``>= n_a`` / ``>= n_b``), which loses its shift.  -1 pads pass
+    through.  Valid slots never gather a pad row of
+    the id tables (windows cover real natives only), so the result is the
+    buffer of the plain hybrid pass 2 (``core.sbm._hsbm_emit``).
+    """
+    n_a, n_b = sid.shape[0], uid.shape[0]
+    c0, c1 = pairs[:, 0], pairs[:, 1]
+    s_idx = torch.where(c0 < n_a, sid[c0.clamp(0, n_a - 1)], c0 - n_a)
+    u_idx = torch.where(c1 < n_b, uid[c1.clamp(0, n_b - 1)], c1 - n_b)
+    return torch.stack([torch.where(c0 < 0, -1, s_idx),
+                        torch.where(c1 < 0, -1, u_idx)], 1)
 
 
 twopass_emit.launches = 0

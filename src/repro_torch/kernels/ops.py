@@ -9,6 +9,8 @@ The port's counterpart of the JAX package's ``kernels/ops.py``:
   takes one of four routes: ``resident`` (K2), ``streaming`` (K5),
   ``csr`` (a lazy ``CSRPairs`` view decoded by K6) or ``xla`` (the plain
   torch pass 2, ``core.sbm.sbm_pairs``);
+* hsbm: ``hsbm_pairs_cuda``, the same four routes on the hybrid's
+  emitter-slot tables (``HsbmCSRPairs`` on csr);
 * ITM: ``itm_query_counts_cuda``, ``itm_query_pairs_cuda`` and
   ``itm_query_pairs_dd_cuda``, the tree walk in K8 (the reference's
   vmapped ``while_loop``); the dims-1+ verify stays gathers and compares,
@@ -228,6 +230,30 @@ def twopass_pairs_csr(S: Regions, U: Regions, max_pairs: int):
     return CSRPairs(tab, perm_s, perm_u, cap=max_pairs, count=count), count
 
 
+def _check_route(route: str, dense_only: bool) -> None:
+    if route not in EMIT_ROUTES:
+        raise ValueError(f"route must be one of {EMIT_ROUTES}, got {route}")
+    if dense_only and route == "csr":
+        raise ValueError(
+            "emit_route='csr' returns a lazy CSRPairs view, but this "
+            "caller needs a dense candidate buffer (d > 1 verify path); "
+            "pin 'streaming'/'xla' or leave 'auto'")
+
+
+def _dense_pass2(route: str, offs, counts, starts, perm_s, perm_u, *,
+                 max_pairs: int, block: int) -> torch.Tensor:
+    """Pass 2 on the ``resident`` (K2) or ``streaming`` (K5) route."""
+    if route == "resident":
+        return emit_kernel.twopass_emit(offs, counts, starts, perm_s,
+                                        perm_u, max_pairs=max_pairs)
+    bl = emit_kernel.lane_pad(block)
+    tab = emit_kernel.pack_emitter_tables(
+        offs, counts, starts, n=perm_s.shape[0], m=perm_u.shape[0],
+        min_len=emit_kernel.stream_window(bl))
+    return emit_kernel.twopass_emit_streaming(tab, perm_s, perm_u,
+                                              max_pairs=max_pairs, block=bl)
+
+
 def twopass_pairs_cuda(S: Regions, U: Regions, max_pairs: int, *,
                        route: str = "auto",
                        block: int = emit_kernel.DEF_BLOCK,
@@ -245,13 +271,7 @@ def twopass_pairs_cuda(S: Regions, U: Regions, max_pairs: int, *,
     """
     global _LAST_EMIT_ROUTE
     assert S.d == 1
-    if route not in EMIT_ROUTES:
-        raise ValueError(f"route must be one of {EMIT_ROUTES}, got {route}")
-    if dense_only and route == "csr":
-        raise ValueError(
-            "emit_route='csr' returns a lazy CSRPairs view, but this "
-            "caller needs a dense candidate buffer (d > 1 verify path); "
-            "pin 'streaming'/'xla' or leave 'auto'")
+    _check_route(route, dense_only)
     if S.n == 0 or U.n == 0:
         _LAST_EMIT_ROUTE = None
         return torch.full((max_pairs, 2), -1, dtype=torch.int32,
@@ -266,18 +286,85 @@ def twopass_pairs_cuda(S: Regions, U: Regions, max_pairs: int, *,
         return twopass_pairs_csr(S, U, max_pairs)
     perm_s, perm_u, starts, counts, offs, cnt_a, cnt_b = _phase1(
         S, U, max_pairs)
-    count = sbm._total(cnt_a) + sbm._total(cnt_b)
-    if route == "resident":
-        pairs = emit_kernel.twopass_emit(offs, counts, starts, perm_s,
-                                         perm_u, max_pairs=max_pairs)
-        return pairs, count
-    bl = emit_kernel.lane_pad(block)
-    tab = emit_kernel.pack_emitter_tables(
-        offs, counts, starts, n=S.n, m=U.n,
-        min_len=emit_kernel.stream_window(bl))
-    pairs = emit_kernel.twopass_emit_streaming(
-        tab, perm_s, perm_u, max_pairs=max_pairs, block=bl)
-    return pairs, count
+    pairs = _dense_pass2(route, offs, counts, starts, perm_s, perm_u,
+                         max_pairs=max_pairs, block=block)
+    return pairs, sbm._total(cnt_a) + sbm._total(cnt_b)
+
+
+# ---------------------------------------------------------------------------
+# hsbm: the hybrid's emitter-slot tables through K2 / K5 / K6
+# ---------------------------------------------------------------------------
+
+class HsbmCSRPairs(CSRPairs):
+    """``CSRPairs`` over the hybrid pass 1, decoding to region ids.
+
+    The packed table and the "permutations" (the shifted id tables
+    ``sid + n_a``, ``uid + n_b``) live in the hybrid's emitter-slot
+    space; ``decode`` runs K6 (its plain version for CPU tensors) and
+    then ``kernels.emit.remap_slot_pairs``, so every window equals the
+    same slice of the hybrid's plain pass 2, −1 pads included.
+    """
+
+    def __init__(self, tab, perm_s, perm_u, *, sid, uid, cap: int,
+                 count: int):
+        super().__init__(tab, perm_s, perm_u, cap=cap, count=count)
+        self.sid = sid
+        self.uid = uid
+
+    @property
+    def nbytes(self) -> int:
+        """The compressed form plus the id tables it decodes through."""
+        return super().nbytes + 4 * (self.sid.numel() + self.uid.numel())
+
+    def decode(self, start: int = 0, stop: int | None = None):
+        out = super().decode(start, stop)
+        return emit_kernel.remap_slot_pairs(out, self.sid, self.uid)
+
+
+def hsbm_pairs_cuda(S: Regions, U: Regions, max_pairs: int, *,
+                    ncells: int | None = None, route: str = "auto",
+                    block: int = emit_kernel.DEF_BLOCK,
+                    budget: int | None = None, dense_only: bool = False):
+    """Hybrid grid+SBM pair enumeration through the emit kernels.
+
+    ``twopass_pairs_cuda``'s contract and route policy, with the
+    hybrid's flattened emitter tables in the place of the n and m
+    emitters: ``choose_emit_route`` sees the padded table sizes
+    ``n_emit_s``/``n_emit_u``, and K2, K5 and K6 get the shifted id
+    tables in the permutations' place, then ``remap_slot_pairs`` maps
+    their slot-space output to region ids (``HsbmCSRPairs`` on csr).
+    ``xla`` is the plain hybrid pass 2.  The geometry is measured on the
+    host (``core.sbm.hsbm_inputs``); ``ncells`` overrides its cell count.
+    """
+    global _LAST_EMIT_ROUTE
+    assert S.d == 1
+    _check_route(route, dense_only)
+    if S.n == 0 or U.n == 0:
+        _LAST_EMIT_ROUTE = None
+        return torch.full((max_pairs, 2), -1, dtype=torch.int32,
+                          device=S.device), 0
+    b, g, lb, width = sbm.hsbm_inputs(S, U, ncells)
+    n_a, n_b = g.n_emit_s, g.n_emit_u
+    if route == "auto":
+        route = choose_emit_route(n_a, n_b, budget=budget,
+                                  dense_only=dense_only)
+    _LAST_EMIT_ROUTE = route
+    if route == "xla":
+        pairs, counts = sbm._hsbm_emit(*b, lb, width, max_pairs=max_pairs,
+                                       **g.statics())
+        return pairs, sbm._total(counts)
+    sid, uid, starts, counts, offs = sbm._hsbm_phase1(
+        *b, lb, width, max_pairs=max_pairs, **g.statics())
+    count = sbm._total(counts)
+    ps, pu = sid + n_a, uid + n_b
+    if route == "csr":
+        tab = emit_kernel.pack_emitter_tables(offs, counts, starts, n=n_a,
+                                              m=n_b)
+        return HsbmCSRPairs(tab, ps, pu, sid=sid, uid=uid, cap=max_pairs,
+                            count=count), count
+    slots = _dense_pass2(route, offs, counts, starts, ps, pu,
+                         max_pairs=max_pairs, block=block)
+    return emit_kernel.remap_slot_pairs(slots, sid, uid), count
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 (``csrc/bfm.cu``),
 K4 (``csrc/bfm_mask.cu``), K5 (``csrc/emit_stream.cu``), K6
 (``csrc/csr_decode.cu``), K7 (``csrc/sparse_attn.cu``) and K8
-(``csrc/itm_walk.cu``) have no CPU mode, so these tests carry the
+(``csrc/itm_walk.cu``), also on the hsbm and serving paths, have no CPU
+mode, so these tests carry the
 ``cuda`` marker and skip on a host without a card.  The file imports neither JAX nor the JAX package, so it also runs
 on the card host, which has no JAX:
 
@@ -17,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch_emit_tables import zero_run_tables  # noqa: E402
+from torch_hsbm_cases import blowup, edges, hybrid_relation  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import MatchSpec, build_plan, paper_workload  # noqa: E402
@@ -337,6 +339,122 @@ def test_stream_and_csr_kernels_match_plain(card, case):
             assert torch.equal(got, dense[w0:w0 + nsl])
             assert torch.equal(got, ref.csr_decode_window(tab, perm_s, perm_u,
                                                           w0, nsl))
+
+
+def _hybrid_case(card, case):
+    """(S, U, ncells) of a hybrid card-test case: ``paper_a50``; ``ties``,
+    the ``_ties`` table (lo == hi regions included); ``ties_nonempty``,
+    integer lows with widths 1..19; ``edges``, lows on and one ulp around
+    the cell edges; ``blowup``, the geometry's blow-up guard inputs (the
+    heuristic cell count)."""
+    if case == "paper_a50":
+        return (*_workload(card, case), 16)
+    if case == "ties":
+        return (*_ties(card), 16)
+    if case == "ties_nonempty":
+        rng = np.random.default_rng(0)
+        lo = rng.integers(0, 500, (2, 3000)).astype(np.float32)
+        hi = lo + rng.integers(1, 20, (2, 3000)).astype(np.float32)
+        arrs = (lo[0], hi[0], lo[1], hi[1])
+    else:
+        arrs = {"edges": edges, "blowup": blowup}[case]()
+    return (convert.regions_from_numpy(*arrs[:2], card),
+            convert.regions_from_numpy(*arrs[2:], card),
+            None if case == "blowup" else 16)
+
+
+@pytest.mark.parametrize("case", ["paper_a50", "ties", "ties_nonempty",
+                                  "edges", "blowup"])
+def test_emit_kernels_on_hybrid_tables_match_plain(card, case):
+    """The hybrid on the card: each region in the cell NumPy's float32
+    ``floor((lo - lb) / width)`` gives it, pass 1's tables equal to the
+    CPU's, K2, K5 and K6 on the emitter-slot tables (the shifted id
+    tables in the permutations' place) equal to their plain versions, and
+    each hsbm route, remapped, bit-equal to the plain hybrid pass 2.  K is
+    sbm's; on the ``ties`` table, whose lo == hi regions the hybrid's
+    class A pairs with the S regions starting there, it is the hybrid
+    relation's, as in the reference (tests/test_torch_hsbm.py)."""
+    S, U, nc = _hybrid_case(card, case)
+    host = [x[:, 0].cpu().numpy() for x in (S.lo, S.hi, U.lo, U.hi)]
+    empty = any((lo == hi).any() for lo, hi in (host[:2], host[2:]))
+    k = sbm.sbm_count_binary(S, U)
+    if empty:
+        k = int(hybrid_relation(*host).sum())
+    b, g, lb, width = sbm.hsbm_inputs(S, U, ncells=nc)
+    Sc, Uc = (convert.regions_from_numpy(lo[:, None], hi[:, None], "cpu")
+              for lo, hi in (host[:2], host[2:]))
+    bc, gc, lbc, widthc = sbm.hsbm_inputs(Sc, Uc, ncells=nc)
+    assert gc == g
+    n_a, n_b = g.n_emit_s, g.n_emit_u
+    for max_pairs in sorted({1, max(k // 3, 1), k, k + 100}):
+        tables = sbm._hsbm_phase1(*b, lb, width, max_pairs=max_pairs,
+                                  **g.statics())
+        cpu_tables = sbm._hsbm_phase1(*bc, lbc, widthc, max_pairs=max_pairs,
+                                      **g.statics())
+        for x, y in zip(tables, cpu_tables):
+            assert torch.equal(x.cpu(), y)
+        sid, uid, starts, counts, offs = tables
+        # natives per cell on the card == NumPy's float32 cells
+        for ids, lo, cap, suf in ((sid, host[0], g.cap_s, g.suf_s),
+                                  (uid, host[2], g.cap_u, g.suf_u)):
+            cells = np.clip(np.floor((lo - np.float32(g.lb))
+                                     / np.float32(g.width)), 0, g.ncells - 1)
+            np.testing.assert_array_equal(
+                (ids.view(g.ncells, cap + suf)[:, :cap] >= 0).sum(1).cpu(),
+                np.bincount(cells.astype(np.int64), minlength=g.ncells))
+        assert sbm._total(counts) == k
+        ps, pu = sid + n_a, uid + n_b
+        dense = ref.twopass_emit(offs, counts, starts, ps, pu,
+                                 max_pairs=max_pairs)
+        before = (emit.twopass_emit.launches,
+                  emit.twopass_emit_streaming.launches,
+                  emit.csr_decode_window.launches)
+        got2 = emit.twopass_emit(offs, counts, starts, ps, pu,
+                                 max_pairs=max_pairs)
+        tab = emit.pack_emitter_tables(
+            offs, counts, starts, n=n_a, m=n_b,
+            min_len=emit.stream_window(emit.DEF_BLOCK))
+        got5 = emit.twopass_emit_streaming(tab, ps, pu, max_pairs=max_pairs)
+        w0 = max_pairs // 2
+        got6 = emit.csr_decode_window(tab, ps, pu, w0, max_pairs - w0)
+        torch.cuda.synchronize()
+        assert (emit.twopass_emit.launches,
+                emit.twopass_emit_streaming.launches,
+                emit.csr_decode_window.launches) == tuple(
+                    x + 1 for x in before)
+        assert torch.equal(got2, dense) and torch.equal(got5, dense)
+        assert torch.equal(got6, dense[w0:])
+        plain, pk = sbm._hsbm_emit(*b, lb, width, max_pairs=max_pairs,
+                                   **g.statics())
+        assert torch.equal(emit.remap_slot_pairs(dense, sid, uid), plain)
+        for route in ("resident", "streaming", "csr", "xla"):
+            res, rk = ops.hsbm_pairs_cuda(S, U, max_pairs, ncells=nc,
+                                          route=route)
+            assert rk == k == sbm._total(pk)
+            got = res.to_dense() if route == "csr" else res
+            assert torch.equal(got, plain), (route, max_pairs)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("capacity", ["exact", "fixed", "grow"])
+def test_hsbm_cuda_backend_equals_torch_backend(card, capacity, d):
+    S, U = paper_workload(9, 20_000, 200.0, d=d, device=card)
+    kw = {"max_pairs": 5000} if capacity == "fixed" else {}
+    want = build_plan(MatchSpec(algo="hsbm", backend="torch",
+                                capacity=capacity, **kw), S.n, U.n, d)
+    wres, wk = want.pairs(S, U)
+    sres, sk = build_plan(MatchSpec(), S.n, U.n, d).pairs(S, U)
+    plan = build_plan(MatchSpec(algo="hsbm", capacity=capacity, **kw), S.n,
+                      U.n, d)
+    assert plan.count(S, U) == want.count(S, U) == sk
+    res, k = plan.pairs(S, U)
+    assert k == wk == sk
+    assert torch.equal(res.data, wres.data)
+    keys = [torch.sort(x[x[:, 0] >= 0, 0].long() * U.n
+                       + x[x[:, 0] >= 0, 1].long()).values
+            for x in (res.data, sres.data)]
+    if capacity != "fixed":
+        assert torch.equal(*keys)
 
 
 def test_mask_kernel_past_65535_row_tiles(card):

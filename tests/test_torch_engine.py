@@ -158,7 +158,7 @@ def test_empty_sets_give_zero_and_all_pad_without_launch(backend, capacity):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("algo", "hsbm", "item 7"), ("backend", "distributed", "item 9")])
+    ("backend", "distributed", "item 9")])
 def test_unported_paths_raise_not_implemented(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         tcore.MatchSpec(**{field: value}, device="cpu")
