@@ -130,6 +130,19 @@ or the JAX package.  Phases, each of which must pass:
 23. entry   ``python -m repro_torch.serve --smoke`` (3 tenants, d = 1
             and 2), then with ``--threaded``, as subprocesses: each must
             exit 0 and print ``SERVE_SMOKE_OK``.
+24. dist    the distributed backend on a NCCL process group of world
+            size 1 (a ``file://`` store in a temporary directory), K1's,
+            K2's and K8's launch counters zeroed just before and read just
+            after: ``count()`` at fig. 9 and Koln, exact ``pairs()`` at
+            fig. 9 at d = 1 and 2, ``query()`` of 64 boxes of width 5e3 on
+            the 1e6-region setting's tree; K and both buffers equal to the
+            ``cuda`` backend's, the query's ids and counts too; K1 on the
+            rank's segment and on two carried middle thirds of fig. 9's
+            sorted stream (active counts below 0; the seeded sums equal the
+            full sweep's), K2 on the rank's tables and on rank 1 of 4's
+            chunk table (count 0 outside it), K8 on the rank's rows, each
+            bit-equal to its plain version; then the times, beside the
+            ``cuda`` backend's.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -2169,6 +2182,291 @@ def host_phase(card: str | None = None) -> dict:
     return split
 
 
+# the distributed phase's query: 64 boxes of width BOX_WIDTH on the tree of
+# the serving setting's update regions, from a generator of their own
+DIST_BOXES = 64
+# K1 on a carried segment: the middle third of fig. 9's sorted stream,
+# cut on a 16-byte boundary (the vector instance) and one element past it
+DIST_CUT = 3
+# K2 on a chunk table: the emitters of rank 1 of 4
+DIST_CHUNK = (1, 4)
+
+
+def k8_nodes_visited(tree, q_lo, q_hi) -> tuple[int, int]:
+    """``(distinct nodes, node visits)`` of the queries' walks, level by
+    level: node c is visited when its parent p was, p is live for the
+    query, c exists, and, for a right child, q_hi > lo[p]
+    (``core.itm._lockstep``'s pushes)."""
+    import torch
+    M = tree.lo.numel() - 1
+    seen = torch.ones((q_lo.numel(), 1), dtype=torch.bool,
+                      device=q_lo.device)
+    distinct, visits = 1, seen.numel()
+    lo, hi = q_lo[:, None], q_hi[:, None]
+    first = 1
+    while 2 * first <= M:
+        k = torch.arange(first, 2 * first, device=q_lo.device)
+        live = seen & ~((tree.maxupper[k] <= lo) | (tree.minlower[k] >= hi))
+        left = live & (2 * k <= M)
+        right = left & (hi > tree.lo[k])
+        seen = torch.stack([left, right], dim=2).reshape(seen.shape[0], -1)
+        distinct += int(seen.any(dim=0).sum())
+        visits += int(seen.sum())
+        first *= 2
+    return distinct, visits
+
+
+def run_slice7(dev: str, fig9: dict, koln_positions: int, dyn: dict,
+               expect_k: dict | None) -> dict:
+    """Phase 24 on ``dev``: the distributed backend on a process group of
+    world size 1 (NCCL on the card, gloo on the CPU), through K1, K2 and
+    K8, against the ``cuda`` backend.  Returns launches, the three
+    kernels' records on this path, and the times."""
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+
+    backend = "nccl" if dev == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            return _slice7_body(dev, fig9, koln_positions, dyn, expect_k,
+                                backend)
+        finally:
+            dist.destroy_process_group()
+
+
+def _slice7_body(dev: str, fig9: dict, koln_positions: int, dyn: dict,
+                 expect_k: dict | None, backend: str) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core import (MatchSpec, build_plan, itm,
+                                  koln_like_workload, paper_workload, sbm)
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.engine import MatchPlan
+    from repro_torch.kernels import emit, ref
+    from repro_torch.kernels import itm as k8
+    from repro_torch.kernels import sbm_sweep as sweep
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    # -- 24. the distributed backend at P = 1 --------------------------------
+    S, U = paper_workload(**fig9, device=dev)
+    n, m = S.n, U.n
+    SK, UK = koln_like_workload(0, n_positions=koln_positions, device=dev)
+    S2, U2 = paper_workload(**fig9, d=2, device=dev)
+    QS, QU = paper_workload(seed=dyn["seed"], n_total=dyn["n_total"],
+                            alpha=dyn["alpha"], device=dev)
+    tree = itm.build_tree(QU)
+    rng = np.random.default_rng(dyn["seed"] + 200)
+    blo = rng.uniform(0.0, SPACE - BOX_WIDTH,
+                      (DIST_BOXES, 1)).astype(np.float32)
+    q_lo = torch.from_numpy(blo).to(dev)
+    q_hi = torch.from_numpy(blo + np.float32(BOX_WIDTH)).to(dev)
+    spec = MatchSpec(backend="distributed", device=dev)
+    dplan = build_plan(spec, n, m, 1)
+    dplan_k = build_plan(spec, SK.n, UK.n, 1)
+    dplan_2 = build_plan(spec, S2.n, U2.n, 2)
+    qspec = dict(algo="itm", capacity="grow", max_pairs=dyn["cap"],
+                 device=dev)
+    dplan_q = MatchPlan(MatchSpec(backend="distributed", **qspec), QS.n,
+                        QU.n, 1)
+    sync()
+
+    sweep.sbm_sweep.launches = 0
+    emit.twopass_emit.launches = 0
+    k8.itm_walk.launches = 0
+    k_count = dplan.count(S, U)
+    k_koln = dplan_k.count(SK, UK)
+    res, k_pairs = dplan.pairs(S, U)
+    res2, k2 = dplan_2.pairs(S2, U2)
+    ids, cnt = dplan_q.query(tree, QU, q_lo, q_hi)
+    sync()
+    launches = {"sbm_sweep (distributed)": sweep.sbm_sweep.launches,
+                "twopass_emit (distributed)": emit.twopass_emit.launches,
+                "itm_walk (distributed)": k8.itm_walk.launches}
+    print(f"[dist] {backend} world 1: count() fig9 {k_count}, Koln "
+          f"{k_koln}; pairs() fig9 K={k_pairs} ({res!r}), d=2 K={k2}; "
+          f"query() of {DIST_BOXES} boxes ({int(cnt.sum())} ids); "
+          f"launches {launches}")
+    for name, count in launches.items():
+        check(dev != "cuda" or count > 0,
+              f"the distributed path did not launch {name}")
+
+    cplan = build_plan(MatchSpec(device=dev), n, m, 1)
+    cplan_k = build_plan(MatchSpec(device=dev), SK.n, UK.n, 1)
+    cplan_2 = build_plan(MatchSpec(device=dev), S2.n, U2.n, 2)
+    cplan_q = MatchPlan(MatchSpec(**qspec), QS.n, QU.n, 1)
+    want_k = cplan.count(S, U)
+    want_koln = cplan_k.count(SK, UK)
+    check(k_count == k_pairs == want_k,
+          f"distributed K fig9 count={k_count} pairs={k_pairs} != {want_k}")
+    check(k_koln == want_koln, f"distributed Koln K {k_koln} != {want_koln}")
+    if expect_k is not None:
+        check(k_count == expect_k["fig9"] and k_koln == expect_k["koln"]
+              and k2 == expect_k["fig9_d2"], "distributed K")
+    cres, _ = cplan.pairs(S, U)
+    check(torch.equal(res.to_dense(), cres.data),
+          "distributed pairs() fig9 != the cuda backend's buffer")
+    cres2, ck2 = cplan_2.pairs(S2, U2)
+    check(k2 == ck2 and torch.equal(res2.to_dense(), cres2.data),
+          "distributed pairs() fig9 d=2 != the cuda backend's buffer")
+    cids, ccnt = cplan_q.query(tree, QU, q_lo, q_hi)
+    check(torch.equal(ids, cids) and torch.equal(cnt, ccnt),
+          "distributed query() != the cuda backend's")
+    print(f"[dist] K at fig9, Koln and fig9 d=2 == the cuda backend's; "
+          f"both pairs() buffers and the query's ids and counts bit-equal")
+    del cres, cres2, res, res2
+
+    # K1 on the rank's segment (the path's input) and on carried segments
+    tot = 2 * (n + m)
+    seg_lo, seg_upd, _ = tdist._segment(
+        S, U, nshards=1, me=0, cap=tdist.bucket_cap(tot, 1, 2.5), group=None)
+    k1_err = exact_err(sweep.sbm_sweep(seg_lo, seg_upd),
+                       ref.sbm_sweep(seg_lo, seg_upd))
+    is_lo, is_upd = sbm._endpoint_stream(S.lo[:, 0], S.hi[:, 0], U.lo[:, 0],
+                                         U.hi[:, 0])
+    full = sweep.sbm_sweep(is_lo, is_upd).long()
+    T = is_lo.numel()
+    a0 = T // DIST_CUT // 4 * 4
+    b0 = 2 * T // DIST_CUT
+    for a in (a0, a0 + 1):
+        c_lo, c_upd = is_lo[a:b0], is_upd[a:b0]
+        got = sweep.sbm_sweep(c_lo, c_upd)
+        want = ref.sbm_sweep(c_lo, c_upd)
+        k1_err = max(k1_err, exact_err(got, want))
+        sign = 2 * is_lo[:a].long() - 1
+        cu = int((sign * is_upd[:a]).sum())
+        cs = int(sign.sum()) - cu
+        seeded = int(tdist.seeded_sweep(c_lo, c_upd, cu, cs))
+        check(int(want.min()) < 0, "the carried segment has no negative "
+              "active count")
+        check(seeded == int(full[a:b0].sum()),
+              f"seeded sweep of [{a}, {b0}) != the full sweep's sum")
+    check(k1_err == 0, f"K1 on the distributed segments != plain "
+          f"(max err {k1_err})")
+    print(f"[K1] the rank's segment ({seg_lo.numel()} endpoints) and the "
+          f"carried segments [{a0}, {b0}) and [{a0 + 1}, {b0}) (active "
+          f"counts below 0, carries {cu}/{cs}) bit-equal to plain; seeded "
+          f"sums == the full sweep's")
+
+    # K2 on the rank's tables (P = 1) and on a chunk table of rank 1 of 4
+    E = n + m
+    p1, _, need = tdist._dist_pairs_pass1(S, U, overprovision=2.5,
+                                          group=None)
+    tabs = tdist.chunk_tables(p1, E, need)
+    k2_args = (*tabs, p1.perm_s, p1.perm_u)
+    k2_rows = emit.twopass_emit(*k2_args, max_pairs=need)
+    k2_err = exact_err(k2_rows, ref.twopass_emit(*k2_args, max_pairs=need))
+    me, P = DIST_CHUNK
+    c0, c1 = tdist._chunk_bounds(E, P, me)
+    chunk = tdist._chunk_ranges(S, U, p1.perm_s, p1.perm_u, c0, c1)
+    need_c = int(chunk.cnt.sum(dtype=torch.int64))
+    chunk_args = (*tdist.chunk_tables(chunk, E, need_c), p1.perm_s,
+                  p1.perm_u)
+    k2_err = max(k2_err, exact_err(
+        emit.twopass_emit(*chunk_args, max_pairs=need_c),
+        ref.twopass_emit(*chunk_args, max_pairs=need_c)))
+    check(k2_err == 0, f"K2 on the distributed tables != plain "
+          f"(max err {k2_err})")
+    print(f"[K2] the rank's tables (cap_dev {need}) and rank {me} of {P}'s "
+          f"chunk [{c0}, {c1}) ({need_c} slots, count 0 outside it) "
+          f"bit-equal to plain")
+
+    # K8 on the rank's rows
+    rows = tdist._query_rows(q_lo, q_hi, group=None)
+    lo0, hi0 = rows.lo[:, 0], rows.hi[:, 0]
+    _, c_plain, visits = itm._lockstep(tree, lo0, hi0)
+    k8_err = exact_err(k8.itm_walk(tree, lo0, hi0, order=rows.order)[1],
+                       c_plain)
+    check(k8_err == 0, f"K8 on the rank's rows != plain (max err {k8_err})")
+    n_visits = int(visits.sum(dtype=torch.int64))
+    n_nodes, n_walked = k8_nodes_visited(tree, lo0, hi0)
+    check(n_walked == n_visits, f"level walk {n_walked} visits != the "
+          f"plain walk's {n_visits}")
+    print(f"[K8] the rank's {lo0.numel()} rows on the {tree.lo.numel()}-"
+          f"node tree: counts bit-equal to the plain walk ({n_visits} "
+          f"visits of {n_nodes} distinct nodes)")
+
+    times = {
+        "dist_count_fig9": time_ms(lambda: dplan.count(S, U)),
+        "cuda_count_fig9": time_ms(lambda: cplan.count(S, U)),
+        "dist_count_koln": time_ms(lambda: dplan_k.count(SK, UK)),
+        "cuda_count_koln": time_ms(lambda: cplan_k.count(SK, UK)),
+        "dist_pairs_fig9": time_ms(lambda: dplan.pairs(S, U)),
+        "cuda_pairs_fig9": time_ms(lambda: cplan.pairs(S, U)),
+        "dist_pairs_fig9_d2": time_ms(lambda: dplan_2.pairs(S2, U2)),
+        "cuda_pairs_fig9_d2": time_ms(lambda: cplan_2.pairs(S2, U2)),
+        "dist_query": time_ms(lambda: dplan_q.query(tree, QU, q_lo, q_hi)),
+        "cuda_query": time_ms(lambda: cplan_q.query(tree, QU, q_lo, q_hi)),
+        "k1_dist": time_ms(lambda: sweep.sbm_sweep(seg_lo, seg_upd)),
+        "k1_dist_plain": time_ms(lambda: ref.sbm_sweep(seg_lo, seg_upd)),
+        "k2_dist": time_ms(lambda: emit.twopass_emit(*k2_args,
+                                                     max_pairs=need)),
+        "k2_dist_plain": time_ms(lambda: ref.twopass_emit(*k2_args,
+                                                          max_pairs=need)),
+        "k2_chunk": time_ms(lambda: emit.twopass_emit(*chunk_args,
+                                                      max_pairs=need_c)),
+        "k8_dist": time_ms(lambda: k8.itm_walk(tree, lo0, hi0,
+                                               order=rows.order)),
+        "k8_dist_plain": time_ms(lambda: ref.itm_walk(tree, lo0, hi0)),
+        # the steps of one warm distributed count() and pairs() at fig. 9
+        "dist_count_segment": time_ms(lambda: tdist._segment(
+            S, U, nshards=1, me=0, cap=tdist.bucket_cap(tot, 1, 2.5),
+            group=None)),
+        "dist_pairs_pass1": time_ms(lambda: tdist._dist_pairs_pass1(
+            S, U, overprovision=2.5, group=None)),
+        "dist_pairs_emit": time_ms(lambda: tdist._dist_pairs_emit(
+            p1, E, cap_dev=need)),
+        "dist_pairs_gather": time_ms(lambda: tdist._all_gather(
+            k2_rows, None)),
+    }
+    Ts = seg_lo.numel()
+    k1_bound = bound_ms(12 * Ts, 12 * Ts)
+    steps = math.ceil(math.log2(E + 1))
+    k2_bound = bound_ms(4 * ((E + 1) + 2 * E + n + m) + 8 * need,
+                        (6 * steps + 12) * need)
+    # K8: the nodes the walks visit read once (five 4-byte fields), 8 B a
+    # query in and 4 B a count out; K8_OPS_PER_VISIT operations a visit
+    b = lo0.numel()
+    k8_bound = bound_ms(4 * 5 * n_nodes + 12 * b,
+                        K8_OPS_PER_VISIT * n_visits)
+    print(f"[dist] bounds: K1 {k1_bound[0]!r} ({k1_bound[1]}), K2 "
+          f"{k2_bound[0]!r} ({k2_bound[1]}), K8 {k8_bound[0]!r} "
+          f"({k8_bound[1]})")
+
+    def rec(name, src, replaces, err, key, bound):
+        return {"name": f"{name} (distributed)", "route": "cuda",
+                "source": src, "replaces": replaces,
+                "launches": launches[f"{name} (distributed)"],
+                "max_abs_err": err, "ms": times[key],
+                "plain_ms": times[f"{key}_plain"], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None, "match": True}
+
+    kernels = [
+        rec("sbm_sweep", "src/repro_torch/csrc/sbm_sweep.cu",
+            "src/repro/kernels/sbm_sweep.py:28", k1_err, "k1_dist",
+            k1_bound),
+        rec("twopass_emit", "src/repro_torch/csrc/emit.cu",
+            "src/repro/kernels/emit.py:185", k2_err, "k2_dist", k2_bound),
+        rec("itm_walk", "src/repro_torch/csrc/itm_walk.cu",
+            "src/repro/core/itm.py:113", k8_err, "k8_dist", k8_bound),
+    ]
+    return {"launches": launches, "kernels": kernels, "times": times,
+            "shapes": {"segment": Ts, "emitters": E, "cap_dev": need,
+                       "chunk_slots": need_c, "rows": b,
+                       "tree_nodes": tree.lo.numel(), "visits": n_visits,
+                       "distinct_nodes": n_nodes,
+                       "backend": backend}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2201,9 +2499,11 @@ def main() -> int:
     out4 = run_slice4("cuda", FIG9, 541_222, DYN, expect)
     out5 = run_slice5("cuda", FIG9, 541_222, WINDOW, KOLN_WINDOW, expect)
     out6 = run_slice6("cuda", SERVE)
+    out7 = run_slice7("cuda", FIG9, 541_222, DYN, expect)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
-                         **out5["launches"], **out6["launches"]}.items():
+                         **out5["launches"], **out6["launches"],
+                         **out7["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
@@ -2232,8 +2532,12 @@ def main() -> int:
     for key, us in out6["times"].items():
         print(f"[time] {key}: {us!r} us (serving at {SERVE}: percentiles "
               f"over the steady ticks, batch_* medians of {REPS}) on {card}")
+    for key, ms in out7["times"].items():
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}; "
+              f"{out7['shapes']}) on {card}")
     print(json.dumps({"kernels": out["kernels"] + out2["kernels"]
-                      + out3["kernels"] + out4["kernels"]}))
+                      + out3["kernels"] + out4["kernels"]
+                      + out7["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

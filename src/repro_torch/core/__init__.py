@@ -1,9 +1,10 @@
 """Core DDM matching library of the port (the paper's contribution, in
-PyTorch), mirroring ``repro.core`` for what is ported so far:
+PyTorch), mirroring ``repro.core``:
 
     spec = MatchSpec(algo="sbm",        # sbm | sbm_chunked | sbm_binary
                                         # | hsbm | itm | bfm | gbm
                      backend="cuda",    # cuda (hand kernels) | torch
+                                        # | distributed (torch.distributed)
                      capacity="exact",  # exact | fixed | grow
                      emit_route="auto", # resident | streaming | csr | xla
                      device="cuda")     # or "cpu"
@@ -18,30 +19,33 @@ PyTorch), mirroring ``repro.core`` for what is ported so far:
 
 Public surface:
     MatchSpec / MatchPlan / build_plan (repro_torch.core.engine)
-    PairsResult / DensePairs — the pair-enumeration result contract
+    PairsResult / DensePairs / ShardedPairs — the pair-enumeration
+    result contract (ShardedPairs: the distributed backend's per-rank
+    buffers)
     Regions, make_regions, paper_workload, koln_like_workload
     block_mask / pairs_to_set (repro_torch.core.dd_match)
     the matchers: sbm (flat and hybrid grid+SBM), itm (the interval
     tree), brute (BFM), grid (GBM and the hybrid's geometry)
+    distributed — the multi-rank backend's steps on torch.distributed
+    (sample_splitters, bucket_cap, resolve_group, ...)
     DDMService / DDMSnapshot / StoreView (repro_torch.core.dynamic)
-
-Not ported yet: the distributed backend (ROADMAP Queue 1 item 9).
 """
 from .regions import (Regions, make_regions, paper_workload,
                       koln_like_workload, intersect_1d, intersect_dd)
 from .engine import (ALGOS, BACKENDS, CAPACITY_POLICIES, MatchPlan,
                      MatchSpec, build_plan)
-from .pairs import DensePairs, PairsResult
+from .pairs import DensePairs, PairsResult, ShardedPairs
 from .dd_match import block_mask, pairs_to_set
 from .dynamic import DDMService, DDMSnapshot, StoreView
-from . import brute, grid, itm, sbm
+from . import brute, distributed, grid, itm, sbm
 
 __all__ = [
     "Regions", "make_regions", "paper_workload", "koln_like_workload",
     "intersect_1d", "intersect_dd",
     "MatchSpec", "MatchPlan", "build_plan",
     "ALGOS", "BACKENDS", "CAPACITY_POLICIES",
-    "PairsResult", "DensePairs", "block_mask", "pairs_to_set",
+    "PairsResult", "DensePairs", "ShardedPairs", "block_mask",
+    "pairs_to_set",
     "DDMService", "DDMSnapshot", "StoreView",
-    "sbm", "itm", "brute", "grid",
+    "sbm", "itm", "brute", "grid", "distributed",
 ]

@@ -160,7 +160,9 @@ class DDMService:
     on ``cuda``), so the service shares the engine's query path and its
     memoized capacity.  ``cap_hint`` floors the per-query id capacity
     unless the spec pins ``max_pairs``.  The plan's ``device`` is where
-    the regions, trees and queries live.
+    the regions, trees and queries live.  A spec with
+    ``backend="distributed"`` runs every tick's query sharded over the
+    ranks of ``spec.group``; every rank must then drive the service alike.
     """
 
     def __init__(self, S: Regions, U: Regions, cap_hint: int = 64,

@@ -22,6 +22,16 @@ Backends
 ``torch``  the counterpart of ``xla``: the plain tensor code of
            ``core.sbm``, ``core.itm``, ``core.brute`` and ``core.grid``
            on any device.
+``distributed``  multi-rank parallel SBM on ``torch.distributed`` (paper
+           §4, ``core.distributed``): ``count()`` (sample sort, the
+           exclusive combine, seeded sweeps through K1), ``pairs()``
+           (per-rank exact counts and slot-bound emit through K2, a
+           ``ShardedPairs``) and ``query()`` (rows sharded, tree
+           replicated, K8 per rank).  Every rank calls the plan with the
+           same replicated inputs and gets the same result; the process
+           group is ``spec.group`` (``None``: the default group), NCCL for
+           ``device="cuda"`` and gloo for ``device="cpu"``.  Count and
+           pairs take the sbm family; ``mask()`` raises.
 
 ``device`` names where the plan's buffers live and where its inputs
 must be; it defaults to ``cuda``, and ``cuda`` without a card raises
@@ -60,11 +70,10 @@ the binary-search per-subscription counts, and filters dimensions
 is rejected for d > 1.  Zero-region inputs give K = 0, an all-−1 buffer
 and an all-False mask without launching a kernel.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
-Queue 1 item: the distributed backend.  PyTorch runs eagerly, so there
-is no jit cache and no trace counter; what stands in for a retrace is a
-capacity a plan resolves for the first time (a new buffer shape), which
-``new_capacities`` logs for ``repro_torch.analysis.steady``.
+PyTorch runs eagerly, so there is no jit cache and no trace counter;
+what stands in for a retrace is a capacity a plan resolves for the
+first time (a new buffer shape), which ``new_capacities`` logs for
+``repro_torch.analysis.steady``.
 """
 from __future__ import annotations
 
@@ -76,7 +85,7 @@ import numpy as np
 import torch
 
 from . import brute, grid, itm, sbm
-from .pairs import DensePairs, PairsResult, to_numpy
+from .pairs import DensePairs, PairsResult, ShardedPairs, to_numpy
 from .regions import Regions, resolve_device
 
 ALGOS = ("bfm", "gbm", "sbm", "sbm_chunked", "sbm_binary", "hsbm", "itm")
@@ -84,17 +93,7 @@ BACKENDS = ("torch", "cuda", "distributed")
 CAPACITY_POLICIES = ("exact", "fixed", "grow")
 SWAPS = ("auto", "S", "U")
 EMIT_ROUTES = ("auto", "resident", "streaming", "csr", "xla")
-
-# what is not ported yet, and where the ROADMAP queues it
-_NOT_PORTED = {
-    "distributed": "ROADMAP Queue 1 item 9",
-}
 _SBM_FAMILY = ("sbm", "sbm_chunked", "sbm_binary")
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({_NOT_PORTED[key]})")
 
 
 def _pow2(x: int) -> int:
@@ -107,7 +106,9 @@ class MatchSpec:
 
     ``algo``/``backend``/``capacity`` select the path; ``max_pairs`` is
     the fixed cap or grow floor; the rest are per-algorithm knobs with
-    the reference's meanings; ``device`` is where the plan runs.
+    the reference's meanings; ``device`` is where the plan runs and
+    ``group`` the ``torch.distributed`` process group of the distributed
+    backend (``None``: the default group).
     """
 
     algo: str = "sbm"
@@ -125,6 +126,8 @@ class MatchSpec:
     emit_route: str = "auto"       # pass-2 route (kernels.ops)
     emit_budget: int | None = None  # emit L2 byte budget (None=default)
     hsbm_ncells: int | None = None  # hsbm grid override (None=measured)
+    overprovision: float = 2.5     # distributed bucket slack
+    group: Any = None              # torch.distributed group (distributed)
     device: str = "cuda"
 
     def __post_init__(self):
@@ -148,10 +151,6 @@ class MatchSpec:
             raise ValueError(f"d must be >= 1, got {self.d}")
         if self.emit_route == "csr" and self.d is not None and self.d > 1:
             raise ValueError(_csr_dense_message(self.d))
-        if self.algo in _NOT_PORTED:
-            raise _not_ported(f"algo={self.algo!r}", self.algo)
-        if self.backend in _NOT_PORTED:
-            raise _not_ported(f"backend={self.backend!r}", self.backend)
 
 
 def _csr_dense_message(d: int) -> str:
@@ -188,6 +187,7 @@ class MatchPlan:
         self.d = int(d)
         self._cap: int | None = None        # memoized output capacity
         self._cand_cap: int | None = None   # memoized dim-0 candidate cap
+        self._cap_dev: int | None = None    # memoized per-rank emit cap
         self._query_cap = max(spec.max_pairs or 1, 1)   # query() grow cap
         self.new_capacities: dict[tuple[str, int], None] = {}
 
@@ -235,6 +235,23 @@ class MatchPlan:
             self._cand_cap = max(exact_c, 1)
         return self._note("candidates", self._cand_cap)
 
+    def _resolve_cap_dev(self, need: int) -> int:
+        """Per-rank emit-buffer capacity of the distributed backend.
+
+        ``need`` is the largest per-rank dim-0 pair total.  ``grow``
+        memoizes a monotone power of two; ``fixed`` at d == 1 takes
+        ``max_pairs`` per rank (the assembled prefix is still the first
+        ``max_pairs`` pairs a global emit would keep); everything else
+        sizes exactly (d > 1 must hold every dim-0 candidate).
+        """
+        need = max(need, 1)
+        if self.spec.capacity == "grow":
+            self._cap_dev = max(self._cap_dev or 1, _pow2(need))
+            return self._note("cap_dev", self._cap_dev)
+        if self.spec.capacity == "fixed" and self.d == 1:
+            return self._note("cap_dev", max(self.spec.max_pairs, 1))
+        return self._note("cap_dev", need)
+
     def _project(self, R: Regions) -> Regions:
         return Regions(R.lo[:, :1], R.hi[:, :1])
 
@@ -244,9 +261,14 @@ class MatchPlan:
         self._check(S, U)
         if S.n == 0 or U.n == 0:
             return 0
-        if self.spec.algo == "bfm":
+        if self.spec.backend == "distributed":
+            if self.d == 1:
+                return self._count_distributed(S, U)
+            # d > 1 falls through to match-then-verify, whose
+            # _pairs_impl takes the sharded emit
+        elif self.spec.algo == "bfm":
             return self._count_bfm(S, U)
-        if self.d == 1:
+        elif self.d == 1:
             return self._count_1d(S, U)
         # d > 1: counting needs pair identity (match-then-verify); the
         # count is exact regardless of the 1-slot output buffer.
@@ -294,6 +316,18 @@ class MatchPlan:
                                   **g.statics())[3]
         return sbm._total(counts)
 
+    def _require_sbm_family(self) -> None:
+        if self.spec.algo not in _SBM_FAMILY:
+            raise ValueError(
+                "distributed backend implements parallel SBM; "
+                f"algo={self.spec.algo!r} is not supported")
+
+    def _count_distributed(self, S: Regions, U: Regions) -> int:
+        from .distributed import _distributed_count
+        self._require_sbm_family()
+        return _distributed_count(S, U, group=self.spec.group,
+                                  overprovision=self.spec.overprovision)
+
     # -- pair enumeration ---------------------------------------------------
     def pairs(self, S: Regions, U: Regions):
         """Enumerate overlaps: ``(PairsResult, count)``.
@@ -335,6 +369,8 @@ class MatchPlan:
 
     def _pairs_impl(self, S: Regions, U: Regions, out_cap: int):
         """(pairs, exact K) with a caller-resolved output capacity."""
+        if self.spec.backend == "distributed":
+            return self._pairs_distributed(S, U, out_cap)
         if self.spec.algo in ("bfm", "gbm"):
             # GBM degenerates to BFM for enumeration (paper: per-cell
             # matching IS brute force; pair identity needs no grid)
@@ -383,7 +419,36 @@ class MatchPlan:
                                        dense_only=self.d > 1)
         return sbm.hsbm_pairs(S0, U0, cap, ncells=spec.hsbm_ncells)
 
-    # -- ITM: the tree walk, K8 on the cuda backend ---------------------------
+    def _pairs_distributed(self, S: Regions, U: Regions, out_cap: int):
+        """Sharded two-pass emit with per-rank slot-bound buffers.
+
+        Pass 1 (``distributed._dist_pairs_pass1``) sorts both lo streams
+        by the distributed sample sort with an index payload and counts
+        the rank's emitter chunk exactly; the exact K and the largest
+        per-rank total come back from one collective, and the total sizes
+        the per-rank capacity (``_resolve_cap_dev``).  Pass 2 decodes the
+        rank's ``cap_dev`` slots with K2; d > 1 filters dimensions 1+ and
+        compacts locally, and K is then the sum of the verified totals.
+        The ranks' buffers and totals are gathered here, with every rank
+        taking part, into a ``ShardedPairs``.
+        """
+        from . import distributed as dist_mod
+        self._require_sbm_family()
+        spec = self.spec
+        p1, k0, need = dist_mod._dist_pairs_pass1(
+            S, U, overprovision=spec.overprovision, group=spec.group)
+        cap_dev = self._resolve_cap_dev(need)
+        rows, ver = dist_mod._dist_pairs_emit(p1, S.n + U.n, cap_dev=cap_dev)
+        if self.d > 1:
+            rows, ver = sbm_verify_dims(S, U, rows, max_pairs=cap_dev)
+        bufs = dist_mod._all_gather(rows, spec.group).reshape(-1, 2)
+        vers = dist_mod._all_gather(
+            torch.tensor([ver], dtype=torch.int64, device=self.device),
+            spec.group).reshape(-1).tolist()
+        k = k0 if self.d == 1 else sum(vers)
+        return ShardedPairs(bufs, vers, out_cap, k), k
+
+    # -- ITM: the tree walk, K8 on the cuda and distributed backends ----------
     def _itm_order(self, q_lo):
         """K8's query order, sorted once for a count walk and a pairs walk
         of the same queries; ``None`` where no kernel runs."""
@@ -479,6 +544,10 @@ class MatchPlan:
     def mask(self, S: Regions, U: Regions) -> torch.Tensor:
         """(n, m) boolean overlap mask (algorithm-independent)."""
         self._check(S, U)
+        if self.spec.backend == "distributed":
+            raise NotImplementedError(
+                "distributed backend supports count/pairs/query; a dense "
+                "(n, m) mask is not sharded — use backend='torch'/'cuda'")
         if S.n == 0 or U.n == 0:
             return torch.zeros((S.n, U.n), dtype=torch.bool,
                                device=self.device)
@@ -495,7 +564,12 @@ class MatchPlan:
         are (b, d).  Returns ``(ids (b, cap) −1-padded, counts (b,))``,
         int32, with ``cap`` resolved by the capacity policy (``grow``
         memoizes a power of two, the ``DDMService`` path).  The walk is
-        K8 on the cuda backend; dims 1+ are verified by gathers.
+        K8 on the cuda backend; dims 1+ are verified by gathers.  Under
+        ``backend="distributed"`` the rows are sharded over the ranks
+        (K8 on each), the tree and ``opp`` are replicated, one
+        ``all_reduce(MAX)`` of the dim-0 counts sizes ``cap``, and every
+        rank gets the whole answer; integer query dtypes raise
+        ``TypeError``.
         """
         b = int(q_lo.shape[0])
         if b == 0 or opp.n == 0:
@@ -507,6 +581,8 @@ class MatchPlan:
             if x.device.type != self.device.type:
                 raise ValueError(f"{name} lives on {x.device} but the plan "
                                  f"runs on {self.device}")
+        if self.spec.backend == "distributed":
+            return self._query_distributed(tree, opp, q_lo, q_hi)
         q_lo, q_hi = q_lo.float(), q_hi.float()
         order = self._itm_order(q_lo[:, 0])
         counts0 = self._itm_counts(tree, q_lo[:, 0], q_hi[:, 0], order)
@@ -527,6 +603,15 @@ class MatchPlan:
             return self._note("query", need)
         self._query_cap = max(self._query_cap, _pow2(need))
         return self._note("query", self._query_cap)
+
+    def _query_distributed(self, tree: itm.ITree, opp: Regions, q_lo, q_hi):
+        from . import distributed as dist_mod
+        group = dist_mod.resolve_group(self.spec.group, self.device)
+        rows = dist_mod._query_rows(q_lo, q_hi, group=group)
+        cap = self._resolve_query_cap(
+            dist_mod._dist_query_counts(tree, rows, group=group))
+        return dist_mod._dist_query(tree, opp.lo, opp.hi, rows, cap=cap,
+                                    group=group)
 
 
 # ---------------------------------------------------------------------------

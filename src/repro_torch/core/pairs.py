@@ -15,8 +15,8 @@ The port's counterpart of the JAX package's ``core/pairs.py``.
 * ``nbytes`` — device bytes actually held.
 
 ``DensePairs`` wraps an in-memory dense ``(cap, 2)`` int32 tensor; the
-lazy CSR view is ``kernels.ops.CSRPairs``.  The distributed
-``ShardedPairs`` is not ported yet (ROADMAP Queue 1 item 9).
+lazy CSR view is ``kernels.ops.CSRPairs``; ``ShardedPairs`` holds the
+distributed backend's per-rank buffers, gathered to every rank.
 """
 from __future__ import annotations
 
@@ -121,4 +121,63 @@ class DensePairs(PairsResult):
 
     def __repr__(self) -> str:
         return (f"DensePairs(cap={self.cap}, count={self.count}, "
+                f"nbytes={self.nbytes})")
+
+
+class ShardedPairs(PairsResult):
+    """``PairsResult`` over the distributed backend's per-rank buffers.
+
+    ``data`` is the gathered ``(nshards * cap_dev, 2)`` int32 stack of the
+    ranks' slot-bound emit buffers: rank p's pairs are the −1-padded
+    prefix of rows ``[p * cap_dev, (p+1) * cap_dev)``, and
+    ``dev_counts[p]`` is that prefix's length.  Rank chunks are disjoint
+    and in global emitter order, so the valid prefixes concatenated in
+    rank order *are* the dense emission-order buffer.  ``MatchPlan.pairs``
+    gathers ``data`` and ``dev_counts`` inside the call, with every rank
+    taking part; after that nothing here is a collective.  The dense
+    ``(cap, 2)`` view is assembled on ``data``'s device on the first
+    ``decode``/``__array__`` and cached.  ``nbytes`` is the footprint held
+    on a rank, ``cap_dev`` rows per rank, not the dense ``cap``.
+    """
+
+    def __init__(self, data: torch.Tensor, dev_counts, cap: int, count: int):
+        self.data = data
+        self.dev_counts = np.asarray(dev_counts, dtype=np.int64)
+        self.nshards = int(self.dev_counts.shape[0])
+        self.cap_dev = int(data.shape[0]) // self.nshards
+        self.cap = int(cap)
+        self.count = int(count)
+        self._dense_cache: torch.Tensor | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.data.shape[0]) * 2 * 4
+
+    def _dense(self) -> torch.Tensor:
+        if self._dense_cache is None:
+            out = torch.full((self.cap, 2), -1, dtype=torch.int32,
+                             device=self.data.device)
+            pos = 0
+            for p in range(self.nshards):
+                take = min(int(self.dev_counts[p]), self.cap - pos)
+                if take > 0:
+                    base = p * self.cap_dev
+                    out[pos:pos + take] = self.data[base:base + take]
+                    pos += take
+                if pos >= self.cap:
+                    break
+            self._dense_cache = out
+        return self._dense_cache
+
+    def decode(self, start: int = 0, stop: int | None = None):
+        stop = self._check_window(start, stop)
+        return self._dense()[start:stop]
+
+    def __array__(self, dtype=None, copy=None):
+        out = to_numpy(self._dense())
+        return out if dtype is None else out.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"ShardedPairs(cap={self.cap}, count={self.count}, "
+                f"nshards={self.nshards}, cap_dev={self.cap_dev}, "
                 f"nbytes={self.nbytes})")

@@ -49,9 +49,9 @@ def _lexsort2(secondary: torch.Tensor, primary: torch.Tensor):
 # endpoint stream construction and the counting sweep
 # ---------------------------------------------------------------------------
 
-def _endpoint_stream(s_lo, s_hi, u_lo, u_hi):
-    """Lex-sorted endpoint stream of one dimension: ``(is_lo, is_upd)``,
-    int32 ``(2(n+m),)`` in sweep order (value asc, hi before lo)."""
+def _endpoints_flat(s_lo, s_hi, u_lo, u_hi):
+    """Unsorted endpoint stream of one dimension in host order (S lows, S
+    highs, U lows, U highs): ``(v, is_lo, is_upd)``, int32 flags."""
     v = torch.cat([s_lo, s_hi, u_lo, u_hi])
     n, m = s_lo.shape[0], u_lo.shape[0]
     dev = v.device
@@ -59,6 +59,13 @@ def _endpoint_stream(s_lo, s_hi, u_lo, u_hi):
     zeros = torch.zeros_like(ones)
     is_lo = torch.cat([ones[:n], zeros[:n], ones[:m], zeros[:m]])
     is_upd = torch.cat([zeros[:2 * n], ones[:2 * m]])
+    return v, is_lo, is_upd
+
+
+def _endpoint_stream(s_lo, s_hi, u_lo, u_hi):
+    """Lex-sorted endpoint stream of one dimension: ``(is_lo, is_upd)``,
+    int32 ``(2(n+m),)`` in sweep order (value asc, hi before lo)."""
+    v, is_lo, is_upd = _endpoints_flat(s_lo, s_hi, u_lo, u_hi)
     order = _lexsort2(is_lo, v)
     return is_lo[order], is_upd[order]
 

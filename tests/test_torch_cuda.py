@@ -3,8 +3,8 @@
 K1 (``csrc/sbm_sweep.cu``), K2 (``csrc/emit.cu``), K3 (``csrc/bfm.cu``),
 K4 (``csrc/bfm_mask.cu``), K5 (``csrc/emit_stream.cu``), K6
 (``csrc/csr_decode.cu``), K7 (``csrc/sparse_attn.cu``) and K8
-(``csrc/itm_walk.cu``), also on the hsbm and serving paths, have no CPU
-mode, so these tests carry the
+(``csrc/itm_walk.cu``), also on the hsbm, serving and distributed paths,
+have no CPU mode, so these tests carry the
 ``cuda`` marker and skip on a host without a card.  The file imports neither JAX nor the JAX package, so it also runs
 on the card host, which has no JAX:
 
@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_dist_cases as dist_cases  # noqa: E402
 from torch_emit_tables import zero_run_tables  # noqa: E402
 from torch_hsbm_cases import blowup, edges, hybrid_relation  # noqa: E402
 
@@ -953,3 +954,91 @@ def test_ddm_service_on_the_card_equals_the_cpu(card):
                 == svcs[1].update_regions(kind, idx, lo, hi))
     assert svcs[0].pairs == svcs[1].pairs
     assert k8.itm_walk.launches >= 10
+
+
+def test_distributed_backend_on_nccl_equals_the_cuda_backend(card, tmp_path):
+    """The distributed backend on a NCCL group of world size 1: count,
+    pairs (d = 1 and 2) and query equal the cuda backend's, bit for bit,
+    through K1, K2 and K8."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        before = (sweep.sbm_sweep.launches, emit.twopass_emit.launches,
+                  k8.itm_walk.launches)
+        for d in (1, 2):
+            S, U = paper_workload(4, 40_000, 20.0 * d, d=d, device=card)
+            want = build_plan(MatchSpec(device=card), S.n, U.n, d)
+            for capacity, mp in (("exact", None), ("fixed", 1000),
+                                 ("grow", 4)):
+                plan = build_plan(MatchSpec(backend="distributed",
+                                            capacity=capacity, max_pairs=mp,
+                                            device=card), S.n, U.n, d)
+                res, k = plan.pairs(S, U)
+                wres, wk = build_plan(
+                    MatchSpec(capacity=capacity, max_pairs=mp, device=card),
+                    S.n, U.n, d).pairs(S, U)
+                assert k == wk == want.count(S, U) == plan.count(S, U)
+                assert torch.equal(res.to_dense(), wres.data), capacity
+            tree = itm.build_tree(U)
+            q = dict(algo="itm", capacity="grow", max_pairs=8, device=card)
+            ids, cnt = build_plan(MatchSpec(backend="distributed", **q),
+                                  S.n, U.n, d).query(tree, U, S.lo, S.hi)
+            wids, wcnt = build_plan(MatchSpec(**q), S.n, U.n, d).query(
+                tree, U, S.lo, S.hi)
+            assert torch.equal(ids, wids) and torch.equal(cnt, wcnt)
+        torch.cuda.synchronize()
+        after = (sweep.sbm_sweep.launches, emit.twopass_emit.launches,
+                 k8.itm_walk.launches)
+        assert all(a > b for a, b in zip(after, before)), (before, after)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_gloo_p4_spawn_on_this_torch(card, tmp_path):
+    """Four spawned gloo ranks on this host's torch (the CPU suite runs the
+    same ranks against the JAX package, which this host lacks): every rank
+    agrees, P = 4 and 2 give P = 1's K and, where lows are distinct, its
+    buffer; cap_dev shrinks with P; overflow raises at the smallest
+    overprovision tried and not at the largest."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=dist_cases.port_worker,
+                         args=(r, 4, str(tmp_path / "store"),
+                               str(tmp_path))) for r in range(4)]
+    for p in ranks:
+        p.start()
+    for p in ranks:
+        p.join(240)
+    alive = [p.is_alive() for p in ranks]
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive) and [p.exitcode for p in ranks] == [0] * 4
+    out = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    K = dist_cases.key
+    for P in (2, 4):
+        for r in range(P):
+            for k in (k for k in out[0] if k.startswith(f"P{P}:")):
+                np.testing.assert_array_equal(out[r][k], out[0][k])
+        for case, pol in dist_cases.RUNS:
+            got = out[0][K(f"P{P}", case, pol, "buf")]
+            want = out[0][K("P1", case, pol, "buf")]
+            assert (out[0][K(f"P{P}", case, pol, "K")]
+                    == out[0][K("P1", case, pol, "K")])
+            if case in dist_cases.TIED:
+                assert got.shape == want.shape
+            else:
+                np.testing.assert_array_equal(got, want)
+        ops = dist_cases.OVERPROVISIONS
+        for path in ("count", "pairs"):
+            assert out[0][K(f"P{P}", "ovf", path, min(ops))] == 1
+            assert out[0][K(f"P{P}", "ovf", path, max(ops))] == 0
+    caps = [int(out[0][K(f"P{P}", "d1", "exact", "cap_dev")])
+            for P in (1, 2, 4)]
+    assert caps[2] < caps[1] < caps[0], caps
+    assert out[0][K("P4", "all_overlap", "K")] == dist_cases.ALL_OVERLAP_N ** 2
+    assert out[0][K("P4", "clustered", "K")] == 0

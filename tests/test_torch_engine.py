@@ -5,8 +5,8 @@ port's plan on ``device="cpu"`` must give the exact K and a bit-identical
 int32 buffer to the JAX package's plan on the mapped backend:
 ``torch`` ↔ ``xla`` and ``cuda`` ↔ ``pallas`` (interpret mode; on the
 CPU the port's ``cuda`` backend runs its kernels' plain versions).
-Also pinned: ``validate_pairs`` messages, the empty-set guarantees, and
-``NotImplementedError`` for what is not ported.
+Also pinned: ``validate_pairs`` messages and the empty-set guarantees.
+The distributed backend has its own file, ``test_torch_distributed.py``.
 """
 import numpy as np
 import pytest
@@ -155,13 +155,6 @@ def test_empty_sets_give_zero_and_all_pad_without_launch(backend, capacity):
         assert (buf == -1).all()
     assert launches == (sbm_sweep.sbm_sweep.launches,
                         emit.twopass_emit.launches)
-
-
-@pytest.mark.parametrize("field,value,item", [
-    ("backend", "distributed", "item 9")])
-def test_unported_paths_raise_not_implemented(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tcore.MatchSpec(**{field: value}, device="cpu")
 
 
 def test_spec_validation_and_unported_methods():
