@@ -87,13 +87,16 @@ or the JAX package.  Phases, each of which must pass:
 18. itm     the interval tree through K8 (``csrc/itm_walk.cu``, the tree
             walk, which the JAX package runs as a vmapped
             ``lax.while_loop``): at fig. 9 K8's counts and its (b, cap)
-            ids bit-equal to the plain lock-step walk; then the main
+            ids bit-equal to the plain lock-step walk, through the
+            regime rule and forced into each of its two regimes (a
+            thread a query, a CTA a query); then the main
             path ``build_plan(MatchSpec(algo="itm"))`` with ``count()``
             and exact ``pairs()`` (launch counter zeroed just before):
             K equal to SBM's, the buffer bit-equal to the
             ``backend="torch"`` plan and, sorted, to SBM's pairs; Koln's
-            ``count()`` through K8 equal to SBM's K (3,678,811,212); fig.
-            9 at d = 2, pairs set-equal to SBM's;
+            ``count()`` through K8 equal to SBM's K (3,678,811,212), and
+            K8's Koln counts in both regimes equal to the plain walk's;
+            fig. 9 at d = 2, pairs set-equal to SBM's;
 19. dynamic ``DDMService`` (itm, grow, cap 8192) at the repo's full-scale
             churn setting, 1e6 regions at alpha = 5: ``connect()``, one
             tick of 10,000 ``update_regions`` moves (drawn by the serving
@@ -101,11 +104,19 @@ or the JAX package.  Phases, each of which must pass:
             their own), the ledger equal to a from-scratch SBM
             ``pairs()`` set, 64 snapshot boxes of width 5e3, of each
             kind, equal to ``oracle_ids``; the same at d = 2 with 1e5
-            regions and three ticks (sub, upd, sub);
-20. times   K8 (count and pairs instances) through its wrapper and alone,
-            the wrapper's query sort, the plain walk, itm ``count()``/``pairs()`` beside sbm's at
-            fig. 9, ``connect()`` and the median tick (host clock), K8's
-            registers, stack and spills (``cuobjdump``) and its bound;
+            regions and three ticks (sub, upd, sub), where the last
+            tick's query also runs through K8 in both regimes against
+            the plain walk;
+20. times   K8 (count and pairs instances) through its wrapper and alone
+            in each regime, at fig. 9 and on serving's batch of 64 boxes
+            on the 1e6-region setting's tree (cap 8192, both regimes
+            checked against the plain walk there too), the wrapper's
+            query sort, the plain walk, the bounds and the CTA regime's
+            depth floor (the tree's height times the L2 hit latency of a
+            pointer chase), itm ``count()``/``pairs()`` beside sbm's at
+            fig. 9, ``connect()`` and the median tick (host clock), the
+            registers, stack and spills of K8's four kernels
+            (``cuobjdump``);
 21. hsbm    the hybrid grid+SBM, ``build_plan(MatchSpec(algo="hsbm"))``,
             at fig. 9 with K2's, K5's and K6's launch counters zeroed just
             before and read just after: ``count()`` and ``pairs()`` under
@@ -125,8 +136,10 @@ or the JAX package.  Phases, each of which must pass:
             full-scale churn setting (one tenant of 1e6 regions, 10,000
             moves and 64 queries a tick, three ticks, batches of 64, cap
             8192, seed 2) on the card, every answer checked against its
-            snapshot's oracle, the steady-state guard on, K8's counter
+            snapshot's oracle, the steady-state guard on, K8's counters
             zeroed just before; query, stale-query and rebuild latencies;
+            one batch split into its steps, its K8 walks in both regimes
+            against the plain walk;
 23. entry   ``python -m repro_torch.serve --smoke`` (3 tenants, d = 1
             and 2), then with ``--threaded``, as subprocesses: each must
             exit 0 and print ``SERVE_SMOKE_OK``.
@@ -140,7 +153,8 @@ or the JAX package.  Phases, each of which must pass:
             rank's segment and on two carried middle thirds of fig. 9's
             sorted stream (active counts below 0; the seeded sums equal the
             full sweep's), K2 on the rank's tables and on rank 1 of 4's
-            chunk table (count 0 outside it), K8 on the rank's rows, each
+            chunk table (count 0 outside it), K8 on the rank's rows (also
+            forced into each regime, counts and cap-8192 ids), each
             bit-equal to its plain version; then the times, beside the
             ``cuda`` backend's.
 
@@ -1398,6 +1412,53 @@ BOX_WIDTH = 5e3
 # operations a K8 node visit takes: two loads and compares to prune,
 # three more to hit, the pushes and the loop (csrc/itm_walk.cu)
 K8_OPS_PER_VISIT = 20
+# K8 at serving's batch: the serving setting's 64 boxes on its snapshot's
+# tree, at its per-query cap floor
+K8_BATCH = 64
+K8_BATCH_CAP = 8192
+# the L2 pointer chase behind K8's depth floor: a random cycle, one index
+# every 128-byte line of 4 MB (more than an SM's L1, less than the L2)
+CHASE = dict(nbytes=4 << 20, stride=32, steps=200_000)
+
+
+def k8_regimes(tree, q_lo, q_hi, want: dict, what: str) -> int:
+    """K8 forced into each regime on the same inputs against the plain
+    walk's ``want`` = {cap: (ids, counts)} (cap 0: the count instance,
+    ids unused): the largest error, which must be 0.  These launches
+    compare the kernel with its plain version; no counted path runs."""
+    from repro_torch.kernels import itm as k8
+    err = 0
+    for regime in k8.REGIMES:
+        for cap, (ids_w, cnt_w) in want.items():
+            ids, cnt = k8.itm_walk(tree, q_lo, q_hi, cap, _regime=regime)
+            e = exact_err(cnt, cnt_w)
+            if cap:
+                e = max(e, exact_err(ids, ids_w))
+            check(e == 0, f"K8 in the {regime} regime (cap {cap}) at {what} "
+                  f"!= the plain walk (max err {e})")
+            err = max(err, e)
+            del ids, cnt
+    return err
+
+
+def l2_latency_ns() -> float:
+    """The card's L2 hit latency, ns: one thread's dependent reads
+    (``ld.global.cg``, past L1) of a random cycle
+    (``itm_walk_chase_launch``), the median CUDA-event time of REPS warm
+    launches over its steps."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load("itm_walk")
+    nodes = CHASE["nbytes"] // 4 // CHASE["stride"]
+    at = torch.randperm(nodes, generator=torch.Generator().manual_seed(0))
+    at = at * CHASE["stride"]
+    nxt = torch.zeros(CHASE["nbytes"] // 4, dtype=torch.int32)
+    nxt[at] = torch.roll(at, -1).to(torch.int32)   # one cycle through 0
+    nxt = nxt.cuda()
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    ms = time_ms(raw_launch(lib.itm_walk_chase_launch, nxt.data_ptr(),
+                            CHASE["steps"], out.data_ptr()))
+    return ms * 1e6 / CHASE["steps"]
 
 
 def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
@@ -1437,10 +1498,14 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
     ids_p, cnt_p = ref.itm_walk(tree, u_lo, u_hi, per_q)
     check(torch.equal(ids_k, ids_p) and torch.equal(cnt_k, cnt_p),
           f"K8 pairs instance != plain walk (err {exact_err(ids_k, ids_p)})")
+    k8_err = max(k8_err, k8_regimes(tree, u_lo, u_hi,
+                                    {0: (None, c_plain),
+                                     per_q: (ids_p, cnt_p)}, "fig9"))
     del ids_k, ids_p, cnt_k, cnt_p
     print(f"[K8] fig9 b={m} tree {tree.lo.numel()} nodes: counts and the "
-          f"(b, {per_q}) ids bit-equal to the plain walk; {n_visits} node "
-          f"visits, {steps} lock-step steps")
+          f"(b, {per_q}) ids bit-equal to the plain walk, through the rule "
+          f"and in both regimes; {n_visits} node visits, {steps} lock-step "
+          f"steps")
 
     k8.itm_walk.launches = 0
     plan = build_plan(MatchSpec(algo="itm", device=dev), n, m, 1)
@@ -1476,8 +1541,22 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
     if expect_k is not None:
         check(k_koln == expect_k["koln"], f"itm Koln K {k_koln}")
     koln_ms = time_ms(lambda: plan_k.count(SK, UK))
+    # K8 at Koln's count, in both regimes, against the plain walk: the
+    # tree on the smaller set, as count() builds it
+    TK, QK = (SK, UK) if SK.n <= UK.n else (UK, SK)
+    tree_k = itm.build_tree(TK)
+    t0 = time.perf_counter()
+    koln_plain = ref.itm_walk(tree_k, QK.lo[:, 0], QK.hi[:, 0])[1]
+    sync()
+    koln_plain_s = time.perf_counter() - t0
+    check(int(koln_plain.sum(dtype=torch.int64)) == k_koln,
+          "the plain walk's Koln K != count()'s")
+    k8_err = max(k8_err, k8_regimes(tree_k, QK.lo[:, 0], QK.hi[:, 0],
+                                    {0: (None, koln_plain)}, "koln"))
     print(f"[itm] koln N={SK.n + UK.n} K={k_koln} == sbm; K8 launches="
-          f"{koln_launches}; count() {koln_ms!r} ms")
+          f"{koln_launches}; count() {koln_ms!r} ms; K8's {QK.n} counts "
+          f"in both regimes == the plain walk ({koln_plain_s!r} s)")
+    del tree_k, koln_plain
 
     S2, U2 = paper_workload(**fig9, d=2, device=dev)
     got2 = {}
@@ -1531,6 +1610,20 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
         dyn_launches[d] = k8.itm_walk.launches
         check(dev != "cuda" or dyn_launches[d] > 0,
               f"the d={d} service launched no K8")
+        if d == 2:
+            # that query's dim-0 walk in both regimes against the plain one
+            tree_q = svc.tree_U() if kind == "sub" else svc.tree_S()
+            ql = torch.from_numpy(np.concatenate([lo, lo])[:, 0]).to(dev)
+            qh = torch.from_numpy(np.concatenate([hi, hi])[:, 0]).to(dev)
+            c_q = ref.itm_walk(tree_q, ql, qh)[1]
+            cap_q = max(int(c_q.max()), 1)
+            k8_err = max(k8_err, k8_regimes(
+                tree_q, ql, qh, {0: (None, c_q),
+                                 cap_q: ref.itm_walk(tree_q, ql, qh, cap_q)},
+                "the d=2 service's query"))
+            print(f"[K8] the d=2 service's query of {ql.numel()} boxes (cap "
+                  f"{cap_q}): both regimes == the plain walk")
+            del tree_q, c_q
         Sn = make_regions(svc.s_lo, svc.s_hi, dev)
         Un = make_regions(svc.u_lo, svc.u_hi, dev)
         res_n, k_n = build_plan(MatchSpec(algo="sbm", device=dev), Sn.n,
@@ -1589,6 +1682,7 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
                               K8_OPS_PER_VISIT * n_visits)
     if dev == "cuda":
         from repro_torch.kernels import _build
+        from repro_torch.serve import harness
         lib = _build.load("itm_walk")
         cnt_buf = torch.empty(m, dtype=torch.int32, device=dev)
         ids_buf = torch.full((m, per_q), -1, dtype=torch.int32, device=dev)
@@ -1597,32 +1691,109 @@ def run_slice4(dev: str, fig9: dict, koln_positions: int, dyn: dict,
                 tree.minlower.data_ptr(), tree.maxupper.data_ptr(),
                 tree.ids.data_ptr(), tree.lo.numel() - 1, u_lo.data_ptr(),
                 u_hi.data_ptr(), u_lo.stride(0), order.data_ptr(), m)
-        # alone: the launch without the wrapper's sort and buffers
+        # alone: the launch without the wrapper's sort and buffers, in the
+        # rule's regime at this b (the thread regime: 20 back-to-back
+        # launches) and in the other one (the CTA regime, a launch a time)
         times["k8_alone"] = time_back_to_back(raw_launch(
-            lib.itm_walk_launch, *walk, 0, None, cnt_buf.data_ptr()))
+            lib.itm_walk_launch, *walk, 0, None, cnt_buf.data_ptr(), 0))
         check(torch.equal(cnt_buf, c_plain), "K8 alone != plain")
         times["k8_pairs_alone"] = time_back_to_back(raw_launch(
             lib.itm_walk_launch, *walk, per_q, ids_buf.data_ptr(),
-            cnt_buf.data_ptr()))
+            cnt_buf.data_ptr(), 0))
+        times["k8_cta_alone"] = time_ms(raw_launch(
+            lib.itm_walk_launch, *walk, 0, None, cnt_buf.data_ptr(), 1))
+        times["k8_pairs_cta_alone"] = time_ms(raw_launch(
+            lib.itm_walk_launch, *walk, per_q, ids_buf.data_ptr(),
+            cnt_buf.data_ptr(), 1))
+        check(torch.equal(cnt_buf, c_plain), "K8 alone (CTA regime) != plain")
         times["k8_order_argsort"] = time_ms(lambda: k8.query_order(u_lo))
         del ids_buf
+
+        # serving's batch: 64 boxes on the 1e6-region setting's tree (phase
+        # 22's), alone in each regime, each checked against the plain walk
+        QS, _ = paper_workload(seed=dyn["seed"], n_total=dyn["n_total"],
+                               alpha=dyn["alpha"], device=dev)
+        tree_b = itm.build_tree(QS)
+        blo, bhi = harness.make_query_boxes(
+            np.random.default_rng(dyn["seed"] + 100), K8_BATCH, 1)
+        b_lo = torch.from_numpy(blo[:, 0]).to(dev)
+        b_hi = torch.from_numpy(bhi[:, 0]).to(dev)
+        _, b_plain, b_visits = itm._lockstep(tree_b, b_lo, b_hi)
+        b_ids_plain, _ = ref.itm_walk(tree_b, b_lo, b_hi, K8_BATCH_CAP)
+        b_cnt = torch.empty(K8_BATCH, dtype=torch.int32, device=dev)
+        b_ids = torch.full((K8_BATCH, K8_BATCH_CAP), -1, dtype=torch.int32,
+                           device=dev)
+        b_order = k8.query_order(b_lo)
+        bwalk = (tree_b.lo.data_ptr(), tree_b.hi.data_ptr(),
+                 tree_b.minlower.data_ptr(), tree_b.maxupper.data_ptr(),
+                 tree_b.ids.data_ptr(), tree_b.lo.numel() - 1,
+                 b_lo.data_ptr(), b_hi.data_ptr(), 1, b_order.data_ptr(),
+                 K8_BATCH)
+        for regime, per_cta in (("cta", 1), ("thread", 0)):
+            times[f"k8_b64_{regime}_alone"] = time_back_to_back(raw_launch(
+                lib.itm_walk_launch, *bwalk, 0, None, b_cnt.data_ptr(),
+                per_cta))
+            check(torch.equal(b_cnt, b_plain), f"K8 b=64 {regime} != plain")
+            times[f"k8_b64_pairs_{regime}_alone"] = time_back_to_back(
+                raw_launch(lib.itm_walk_launch, *bwalk, K8_BATCH_CAP,
+                           b_ids.data_ptr(), b_cnt.data_ptr(), per_cta))
+            check(torch.equal(b_ids, b_ids_plain),
+                  f"K8 b=64 pairs {regime} != plain")
+        times["k8_b64"] = time_ms(lambda: k8.itm_walk(tree_b, b_lo, b_hi))
+        times["k8_b64_pairs"] = time_ms(lambda: k8.itm_walk(
+            tree_b, b_lo, b_hi, K8_BATCH_CAP))
+        times["k8_b64_plain"] = time_ms(lambda: ref.itm_walk(tree_b, b_lo,
+                                                             b_hi), reps=1)
+        b_visits_n = int(b_visits.sum(dtype=torch.int64))
+        b_nodes, b_walked = k8_nodes_visited(tree_b, b_lo, b_hi)
+        check(b_walked == b_visits_n, "the level walk's visits at b=64 != "
+              "the plain walk's")
+        b_bytes = 4 * 5 * b_nodes + 12 * K8_BATCH
+        k8_b64_bound = bound_ms(b_bytes, K8_OPS_PER_VISIT * b_visits_n)
+        k8_b64_pairs_bound = bound_ms(
+            b_bytes + 4 * K8_BATCH * K8_BATCH_CAP,
+            K8_OPS_PER_VISIT * b_visits_n)
+        l2_ns = l2_latency_ns()
+        h_b = tree_b.height
+        times["l2_hit_latency"] = l2_ns * 1e-6
+        times["k8_b64_depth_floor"] = h_b * l2_ns * 1e-6
+        times["k8_b64_bound"] = k8_b64_bound[0]
+        times["k8_b64_pairs_bound"] = k8_b64_pairs_bound[0]
+        del b_ids, b_ids_plain, tree_b, QS
+
         code = kernel_code("itm_walk")
-        _, f_cnt = pick(code, "itm_walk_kernelILb0")
-        _, f_ids = pick(code, "itm_walk_kernelILb1")
+        picks = {f"{name} {inst}": pick(code, f"{name}ILb{i}")[1]
+                 for name in ("walk_per_thread", "walk_per_cta")
+                 for i, inst in enumerate(("count", "pairs"))}
         print(f"[K8] fig9 b={m} ({n_visits} visits, {steps} steps): count "
               f"instance {times['k8']!r} ms through the wrapper, "
               f"{times['k8_alone']!r} alone (the "
               f"order's argsort {times['k8_order_argsort']!r}); pairs "
               f"instance (cap {per_q}) {times['k8_pairs']!r} / "
-              f"{times['k8_pairs_alone']!r} alone; plain "
+              f"{times['k8_pairs_alone']!r} alone; forced into the CTA "
+              f"regime, alone: count {times['k8_cta_alone']!r}, pairs "
+              f"{times['k8_pairs_cta_alone']!r}; plain "
               f"walk {times['k8_plain']!r}; bound {k8_bound[0]!r} "
               f"({k8_bound[1]}), pairs {k8_pairs_bound[0]!r} "
               f"({k8_pairs_bound[1]}); {n_visits / (times['k8_alone'] * 1e-3)!r}"
               f" visits/s alone")
-        print(f"[K8] count instance: {resources(f_cnt)}, static shared "
-              f"{f_cnt.get('shared', 'not read')} B; pairs instance: "
-              f"{resources(f_ids)}, static shared "
-              f"{f_ids.get('shared', 'not read')} B")
+        print(f"[K8] b={K8_BATCH} on the {dyn['n_total']}-region "
+              f"setting's tree (h={h_b}; {b_visits_n} visits of {b_nodes} "
+              f"distinct nodes; {int(b_plain.sum())} hits, the most "
+              f"{int(b_plain.max())}): count instance {times['k8_b64']!r} ms "
+              f"through the wrapper, {times['k8_b64_cta_alone']!r} alone "
+              f"(thread regime {times['k8_b64_thread_alone']!r}); pairs "
+              f"instance (cap {K8_BATCH_CAP}) {times['k8_b64_pairs']!r} / "
+              f"{times['k8_b64_pairs_cta_alone']!r} alone (thread regime "
+              f"{times['k8_b64_pairs_thread_alone']!r}); plain walk "
+              f"{times['k8_b64_plain']!r}; bound {k8_b64_bound[0]!r} "
+              f"({k8_b64_bound[1]}), pairs {k8_b64_pairs_bound[0]!r} "
+              f"({k8_b64_pairs_bound[1]}); depth floor "
+              f"{times['k8_b64_depth_floor']!r} ms ({h_b} levels x the L2 "
+              f"hit latency {l2_ns!r} ns, pointer chase)")
+        print("[K8] " + "; ".join(
+            f"{name}: {resources(f)}, static shared "
+            f"{f.get('shared', 'not read')} B" for name, f in picks.items()))
     print(f"[itm] fig9 count() {times['itm_count_e2e']!r} ms, pairs() "
           f"{times['itm_pairs_e2e']!r} ms; sbm count() "
           f"{times['sbm_count_e2e']!r}, pairs() {times['sbm_pairs_e2e']!r}")
@@ -1968,16 +2139,19 @@ def run_slice6(dev: str, serve: dict, smoke_args: tuple = ()) -> dict:
     import torch
     from repro_torch.core import DDMService, MatchSpec, paper_workload
     from repro_torch.kernels import itm as k8
+    from repro_torch.kernels import ref
     from repro_torch.serve import batching, harness
 
     # -- 22. serving at full scale -------------------------------------------
     k8.itm_walk.launches = 0
+    k8.itm_walk.cta_launches = 0
     t0 = time.perf_counter()
     stats = harness.run_churn(**serve, warm_start=dev == "cuda", device=dev)
     wall = time.perf_counter() - t0
     if dev == "cuda":
         torch.cuda.synchronize()
     launches = {"itm_walk (serving)": k8.itm_walk.launches}
+    cta_launches = k8.itm_walk.cta_launches
     check(stats["parity_checks"] > 0, "serving parity never exercised")
     c = stats["metrics"]["tenants"]["tenant0"]["counters"]
     numbers = {
@@ -1993,8 +2167,8 @@ def run_slice6(dev: str, serve: dict, smoke_args: tuple = ()) -> dict:
           f"snapshot's oracle ({stats['parity_checks']} parity checks), "
           f"steady-state guard quiet; " + ", ".join(
               f"{k} {v!r}" for k, v in numbers.items())
-          + f"; counters {c}; K8 launches={launches['itm_walk (serving)']}; "
-          f"wall {wall!r} s")
+          + f"; counters {c}; K8 launches={launches['itm_walk (serving)']} "
+          f"({cta_launches} in the CTA regime); wall {wall!r} s")
     if dev == "cuda":
         # one query batch at the same scale, step by step: the tenant's
         # first snapshot and one burst's boxes of each target, padded
@@ -2012,6 +2186,13 @@ def run_slice6(dev: str, serve: dict, smoke_args: tuple = ()) -> dict:
         cap = serve["cap_hint"]
         ids, _ = svc.query_snapshot(snap, "sub", blo, bhi)
         hits = int((ids >= 0).sum())
+        # the batch's walks in both regimes against the plain walk
+        ql, qh = q_lo[:, 0], q_hi[:, 0]
+        k8_regimes(tree, ql, qh, {0: (None, ref.itm_walk(tree, ql, qh)[1]),
+                                  cap: ref.itm_walk(tree, ql, qh, cap)},
+                   "serving's batch")
+        print(f"[K8] serving's batch of {serve['max_batch']} boxes (cap "
+              f"{cap}): both regimes == the plain walk")
         split = {
             "batch_query": time_ms(lambda: svc.query_snapshot(
                 snap, "sub", blo, bhi)),
@@ -2387,6 +2568,11 @@ def _slice7_body(dev: str, fig9: dict, koln_positions: int, dyn: dict,
     k8_err = exact_err(k8.itm_walk(tree, lo0, hi0, order=rows.order)[1],
                        c_plain)
     check(k8_err == 0, f"K8 on the rank's rows != plain (max err {k8_err})")
+    k8_err = max(k8_err, k8_regimes(
+        tree, lo0, hi0, {0: (None, c_plain),
+                         K8_BATCH_CAP: ref.itm_walk(tree, lo0, hi0,
+                                                    K8_BATCH_CAP)},
+        "the rank's rows"))
     n_visits = int(visits.sum(dtype=torch.int64))
     n_nodes, n_walked = k8_nodes_visited(tree, lo0, hi0)
     check(n_walked == n_visits, f"level walk {n_walked} visits != the "

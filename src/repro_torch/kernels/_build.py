@@ -72,7 +72,8 @@ SIGNATURES = {
     "itm_walk": {
         "itm_walk_strerror": ((_I,), ctypes.c_char_p),
         "itm_walk_launch": ((_P, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I,
-                             _P, _P, _P), _I),
+                             _P, _P, _I, _P), _I),
+        "itm_walk_chase_launch": ((_P, _L, _P, _P), _I),
     },
     "sparse_attn": {
         "sparse_attn_strerror": ((_I,), ctypes.c_char_p),

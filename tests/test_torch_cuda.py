@@ -857,12 +857,14 @@ def test_itm_kernel_zero_queries_and_strided_queries(card):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_itm_kernel_rows_past_2_31_slots(card):
+@pytest.mark.parametrize("regime", [None, "cta"])
+def test_itm_kernel_rows_past_2_31_slots(card, regime):
     # b * cap = 262,145 * 8192 > 2^31: the last rows sit past slot 2^31
+    # (None: the rule's regime at this b, the thread regime)
     b, cap = 262_145, 8192
     _, tree, q_lo, q_hi = _itm_case(card, 2000, b, 5)
     ql, qh = q_lo[:, 0], q_hi[:, 0]
-    ids, cnt = k8.itm_walk(tree, ql, qh, cap)
+    ids, cnt = k8.itm_walk(tree, ql, qh, cap, _regime=regime)
     torch.cuda.synchronize()
     assert ids.shape == (b, cap) and b * cap > 2 ** 31
     assert torch.equal(cnt, ref.itm_walk(tree, ql, qh)[1])
@@ -900,19 +902,100 @@ def test_itm_kernel_rejects_bad_tensors(card):
             k8.itm_walk(tree, ql, qh, 0, bad)
 
 
-def test_itm_refused_launch_raises(card):
+@pytest.mark.parametrize("per_cta", [0, 1])
+def test_itm_refused_launch_raises(card, per_cta):
     # a tree length past the kernel's limit, forced past the wrapper's
-    # checks: the launch function refuses it and the wrapper raises
+    # checks: the launch function refuses it, in either regime, and the
+    # wrapper raises; so does a regime that is neither
     _, tree, q_lo, _ = _itm_case(card, 10, 4, 3)
     lib = _build.load("itm_walk")
     cnt = torch.empty(4, dtype=torch.int32, device=card)
-    rc = _build.launch(card, lib.itm_walk_launch, tree.lo.data_ptr(),
-                       tree.hi.data_ptr(), tree.minlower.data_ptr(),
-                       tree.maxupper.data_ptr(), tree.ids.data_ptr(), 6,
-                       q_lo.data_ptr(), q_lo.data_ptr(), 1, None, 4, 0, None,
-                       cnt.data_ptr())
-    with pytest.raises(RuntimeError, match="itm_walk kernel launch failed"):
-        _build.check(lib, "itm_walk", rc)
+    order = k8.query_order(q_lo[:, 0])
+    for m, regime in ((6, per_cta), (7, per_cta + 2)):
+        rc = _build.launch(card, lib.itm_walk_launch, tree.lo.data_ptr(),
+                           tree.hi.data_ptr(), tree.minlower.data_ptr(),
+                           tree.maxupper.data_ptr(), tree.ids.data_ptr(), m,
+                           q_lo.data_ptr(), q_lo.data_ptr(), 1,
+                           order.data_ptr(), 4, 0, None, cnt.data_ptr(),
+                           regime)
+        with pytest.raises(RuntimeError,
+                           match="itm_walk kernel launch failed"):
+            _build.check(lib, "itm_walk", rc)
+
+
+def _both_regimes(tree, ql, qh, caps):
+    """K8 in each regime against the plain walk, count instance and each
+    cap's pairs instance: one launch a call, the CTA ones counted."""
+    want = {cap: ref.itm_walk(tree, ql, qh, cap) for cap in caps}
+    for regime in k8.REGIMES:
+        before = (k8.itm_walk.launches, k8.itm_walk.cta_launches)
+        for cap in caps:
+            ids, got = k8.itm_walk(tree, ql, qh, cap, _regime=regime)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[cap][1]), (regime, cap)
+            assert torch.equal(ids, want[cap][0]), (regime, cap)
+        calls = len(caps)
+        assert (k8.itm_walk.launches, k8.itm_walk.cta_launches) == (
+            before[0] + calls, before[1] + calls * (regime == "cta"))
+    return want
+
+
+@pytest.mark.parametrize("b", [1, 63, 64, 65, "sms", "sms+1", 50_001])
+def test_itm_kernel_regimes_match_plain(card, b):
+    # both regimes on the same inputs, on either side of the rule's
+    # boundary (b = the card's SM count); strided columns of (b, 2) boxes
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    b = {"sms": sms, "sms+1": sms + 1}.get(b, b)
+    assert k8.regime(sms, sms) == "cta" and k8.regime(sms + 1, sms) == "thread"
+    _, tree, q_lo, q_hi = _itm_case(card, 20_000, b, b, d=2)
+    ql, qh = q_lo[:, 0], q_hi[:, 0]
+    assert ql.stride(0) == 2
+    top = int(ref.itm_walk(tree, ql, qh)[1].max())
+    _both_regimes(tree, ql, qh, sorted({0, 1, max(top // 2, 1), max(top, 1),
+                                        top + 3}))
+    before = k8.itm_walk.cta_launches
+    k8.itm_walk(tree, ql, qh)
+    assert k8.itm_walk.cta_launches == before + (b <= sms)
+
+
+def test_itm_kernel_regimes_on_padded_batches_and_one_node(card):
+    # serving's batches: the sentinel rows of pad_boxes prune at the root
+    from types import SimpleNamespace
+    from repro_torch.serve import batching
+    _, tree, q_lo, q_hi = _itm_case(card, 5000, 40, 17)
+    reqs = [SimpleNamespace(lo=q_lo[i].cpu().numpy(), hi=q_hi[i].cpu().numpy())
+            for i in range(40)]
+    blo, bhi = batching.pad_boxes(reqs, 1, 64)
+    ql = torch.from_numpy(blo[:, 0]).to(card)
+    qh = torch.from_numpy(bhi[:, 0]).to(card)
+    want = _both_regimes(tree, ql, qh, [0, 3, 512])
+    assert int(want[0][1][40:].abs().sum()) == 0
+    assert int(want[0][1][:40].sum()) > 0
+    # a one-node tree (n = 1, M = 1): the root is the only leaf
+    _, tree1, q_lo, q_hi = _itm_case(card, 1, 64, 18)
+    assert tree1.lo.numel() == 2
+    want = _both_regimes(tree1, q_lo[:, 0], q_hi[:, 0], [0, 1, 2])
+    assert 0 < int(want[0][1].sum()) < 64
+
+
+def test_itm_kernel_regimes_on_a_2_19_node_tree_at_cap_8192(card):
+    # 2^19 - 1 intervals (a full 2^19-node tree), boxes up to 40,000 wide:
+    # the widest pass the CTA regime's 12,288-entry list (open subtrees
+    # walked) and the 8192-id cap (rows cut, counts going on)
+    rng = np.random.default_rng(19)
+    n = (1 << 19) - 1
+    lo = rng.uniform(0, 1e6, n).astype(np.float32)
+    hi = lo + rng.uniform(1, 50, n).astype(np.float32)
+    tree = itm.build_tree(convert.regions_from_numpy(lo, hi, card))
+    assert tree.lo.numel() == 1 << 19
+    b = 64
+    q_lo = rng.uniform(0, 9.6e5, b).astype(np.float32)
+    width = np.geomspace(1, 40_000, b).astype(np.float32)
+    ql = torch.from_numpy(q_lo).to(card)
+    qh = torch.from_numpy(q_lo + width).to(card)
+    want = _both_regimes(tree, ql, qh, [0, 8192])
+    counts = want[0][1]
+    assert int(counts.max()) > 12_288 and int((counts > 8192).sum()) > 1
 
 
 @pytest.mark.parametrize("d", [1, 2])
