@@ -157,6 +157,22 @@ or the JAX package.  Phases, each of which must pass:
             forced into each regime, counts and cap-8192 ids), each
             bit-equal to its plain version; then the times, beside the
             ``cuda`` backend's.
+25. audit   the port's auditor on the card, ``repro_torch.analysis.run_all
+            (device="cuda")``: every engine row's plan methods under the
+            dispatch capture (the cuda backend's host syncs held against
+            ``torch.cuda.set_sync_debug_mode``), K1-K8 launched at the
+            JAX auditor's production shapes and K8's two regimes under
+            the launch capture (each launch checked before it runs:
+            int32 arguments, shared memory against the card's opt-in
+            limit, grid and block limits), the compiled functions'
+            resources, the grow bounds and steady-state probes, the lint;
+            then the seeded-defect corpus (``tests/torch_analysis_corpus``)
+            with its card case, a real launch refused for its shared
+            memory.  Prints the summary, an ``[audit]`` line per kernel
+            function (registers, static shared, stack, local bytes, the
+            largest dynamic shared memory captured against the opt-in
+            limit) and the audit's wall time; any error finding or missed
+            defect fails.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -179,6 +195,9 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.analysis.kernel_audit import (  # noqa: E402
+    kernel_code, pick, resources)
 
 FIG9 = dict(seed=42, n_total=1_000_000, alpha=100.0)
 FIG9_K = 49_996_544           # the paper's fig. 9 setting, exact K
@@ -221,53 +240,6 @@ def smi(query: str = "name,power.limit") -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def kernel_code(lib: str, path: Path | None = None) -> dict:
-    """The kernels of the built library ``lib`` (or of the library file
-    ``path``) as ``cuobjdump`` reads them: {mangled name: {"sass":
-    [instruction lines], "regs", "stack", "local", "shared"}} (the last
-    four in registers and bytes)."""
-    from repro_torch.kernels import _build
-    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    path = str(path or _build._target(lib))
-
-    def dump(flag):
-        return subprocess.run([tool, flag, path], capture_output=True,
-                              text=True, timeout=600, check=True).stdout
-
-    funcs: dict = {}
-    cur = None
-    for line in dump("-sass").splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            cur = funcs.setdefault(head.group(1), {"sass": []})
-        elif cur is not None:
-            cur["sass"].append(line)
-    cur = None
-    for line in dump("-res-usage").splitlines():
-        head = re.match(r"\s*Function (\S+?):?\s*$", line)
-        use = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
-                        line)
-        if head:
-            cur = funcs.setdefault(head.group(1), {"sass": []})
-        elif use and cur is not None:
-            cur.update(zip(("regs", "stack", "shared", "local"),
-                           map(int, use.groups())))
-    return funcs
-
-
-def pick(funcs: dict, *parts: str) -> tuple[str, dict]:
-    """The one kernel whose mangled name holds every string in ``parts``."""
-    hits = [k for k in funcs if all(x in k for x in parts)]
-    check(len(hits) == 1, f"kernels named {parts}: {hits}")
-    return hits[0], funcs[hits[0]]
-
-
-def resources(fn: dict) -> str:
-    return (f"{fn.get('regs', 'not read')} registers, stack "
-            f"{fn.get('stack', 'not read')} B, local (spills) "
-            f"{fn.get('local', 'not read')} B")
 
 
 def instructions_per_pair(sass: list[str], mixed: bool) -> tuple[float, int,
@@ -2261,7 +2233,6 @@ def host_phase(card: str | None = None) -> dict:
     also runs alone: ``python3 -c 'import chip_smoke as c;
     c.host_phase()'``."""
     import torch
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import MatchSpec, build_plan, paper_workload, sbm
     from repro_torch.kernels import _build, emit
     from repro_torch.kernels import sbm_sweep as sweep
@@ -2653,13 +2624,62 @@ def _slice7_body(dev: str, fig9: dict, koln_positions: int, dyn: dict,
                        "backend": backend}}
 
 
+# every C entry point of K1-K8 the kernel matrix must launch
+AUDIT_ENTRIES = ("sbm_sweep_launch", "twopass_emit_launch",
+                 "bfm_tile_counts_launch", "bfm_mask_launch",
+                 "emit_stream_launch", "csr_decode_launch",
+                 "sparse_attn_launch", "itm_walk_launch")
+
+
+def run_audit(card: str) -> dict:
+    """Phase 25: the auditor and its corpus on the card; returns the
+    wall time and the number of findings."""
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis.corpus import corpus_summary, run_corpus
+    t0 = time.perf_counter()
+    report = run_all(root=ROOT, device="cuda")
+    results = run_corpus(ROOT / "tests" / "torch_analysis_corpus",
+                         device="cuda")
+    wall = time.perf_counter() - t0
+    print(report.summary())
+    print(corpus_summary(results))
+    limit = report.limits["smem_optin"]
+    largest: dict = {}       # (lib, kernel name fragment) -> bytes
+    for rec, geo in report.launches:
+        if geo is not None:
+            key = (rec.lib, geo["kernel"])
+            largest[key] = max(largest.get(key, 0), geo["smem"])
+    for lib, funcs in sorted(report.resources.items()):
+        for name, fn in sorted(funcs.items()):
+            dyn = [v for (lib_, kernel), v in largest.items()
+                   if lib_ == lib and kernel in name]
+            print(f"[audit] {lib}:{name}: {resources(fn)}, static shared "
+                  f"{fn.get('shared', 'not read')} B; largest dynamic "
+                  f"shared memory captured "
+                  + (f"{max(dyn)} B" if dyn else "none (not launched)")
+                  + f" of the card's opt-in {limit} B")
+    for name, entries in report.kernel_entries.items():
+        print(f"[audit] matrix {name}: {', '.join(entries) or 'NOTHING'}")
+    print(f"[audit] wall {wall!r} s (run_all {report.seconds!r} s, then the "
+          f"corpus) on {card}")
+    check(report.ok(), f"the audit found {len(report.errors())} error(s)")
+    check(results and all(r.ran and r.ok for r in results),
+          "a seeded defect was missed or not run on the card")
+    captured = {e for entries in report.kernel_entries.values()
+                for e in entries}
+    check(set(AUDIT_ENTRIES) <= captured,
+          f"kernels not captured: {sorted(set(AUDIT_ENTRIES) - captured)}")
+    check(all(report.kernel_entries.values()),
+          "a kernel-matrix entry launched nothing")
+    return {"seconds": wall, "findings": len(report.findings)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
     # -- 1. device ----------------------------------------------------------
@@ -2686,6 +2706,7 @@ def main() -> int:
     out5 = run_slice5("cuda", FIG9, 541_222, WINDOW, KOLN_WINDOW, expect)
     out6 = run_slice6("cuda", SERVE)
     out7 = run_slice7("cuda", FIG9, 541_222, DYN, expect)
+    run_audit(card)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
                          **out5["launches"], **out6["launches"],

@@ -90,7 +90,11 @@ def fma_scale(*bounds: torch.Tensor) -> float:
 
 def bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, *, ts: int = 256,
                     tu: int = 256) -> torch.Tensor:
-    """Per-tile overlap counts int32 (n/ts, m/tu); n%ts == m%tu == 0."""
+    """Per-tile overlap counts int32 (n/ts, m/tu); n%ts == m%tu == 0.
+
+    Shared memory a CTA of 256 threads: ``16·ts`` bytes on the d1 path
+    (the S strip as float4), else ``8·d·(ts + tu)`` (both tiles' bounds).
+    """
     n, m = s_lo.shape[0], u_lo.shape[0]
     if ts < 1 or tu < 1 or n % ts or m % tu:
         raise ValueError(f"bfm_tile_counts needs n % ts == m % tu == 0, got "
@@ -132,7 +136,11 @@ def _launch_tile_counts(s_lo, s_hi, u_lo, u_hi, ts, tu, K) -> torch.Tensor:
 
 
 def bfm_mask(s_lo, s_hi, u_lo, u_hi) -> torch.Tensor:
-    """Full (n, m) bool overlap mask, any n and m."""
+    """Full (n, m) bool overlap mask, any n and m.
+
+    Persistent CTAs of 256 threads, static shared memory only (two
+    32-row tiles of S bounds).
+    """
     if s_lo.device.type == "cpu":
         return ref.bfm_mask(s_lo, s_hi, u_lo, u_hi)
     if s_lo.device.type != "cuda":

@@ -175,7 +175,12 @@ def _check_packed(tab, perm_s, perm_u) -> None:
 
 def twopass_emit(offs, counts, starts, perm_s, perm_u, *,
                  max_pairs: int) -> torch.Tensor:
-    """K2: pass-2 pair write, ``(max_pairs, 2)`` int32, −1 padded."""
+    """K2: pass-2 pair write, ``(max_pairs, 2)`` int32, −1 padded.
+
+    A CTA of 256 threads a tile of T slots (``EMIT_TILE_MIN`` to
+    ``EMIT_TILE_MAX``, by the tile rule above), at ``4·T + 3084`` bytes
+    of shared memory: the owner array and a 3 × 257-entry window.
+    """
     if max_pairs == 0:
         return _empty_pairs(offs.device)
     if offs.device.type == "cpu":
@@ -240,7 +245,8 @@ def csr_decode_window(tab, perm_s, perm_u, w0: int,
     """K6: slots ``[w0, w0 + nslots)`` of the pass-2 buffer, ``(nslots, 2)``.
 
     ``w0`` and ``nslots`` are runtime arguments; ``w0 + nslots`` must
-    stay within int32 slot ids.
+    stay within int32 slot ids.  A CTA of 256 threads a ``CSR_TILE``-slot
+    tile, static shared memory only (its window and owner array).
     """
     if nslots == 0:
         return _empty_pairs(tab.device)

@@ -32,6 +32,10 @@ after a finished subtree follows from the node index's bits.
   the tree's height in dependent reads.  It takes no order, and the
   wrapper sorts none for it.
 
+Shared memory: the CTA regime takes 159,812 bytes a CTA of 512 threads
+(two lists of 12,288 entries, their counts and flags, the scan's sums);
+the thread regime, 256 queries a CTA, static shared memory only.
+
 ``regime`` is the rule; ``itm_walk(..., _regime=...)`` forces either
 regime on the same inputs (for the tests and ``chip_smoke.py``).
 ``itm_walk`` launches the kernel for CUDA tensors (or raises) and runs

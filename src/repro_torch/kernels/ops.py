@@ -141,7 +141,7 @@ def emit_route_bytes(n: int, m: int) -> dict:
     (``csr`` decodes windows on demand and needs no budget.)
     """
     e = n + m
-    return {"resident": 4 * (3 * (e + 1) + e), "streaming": 4 * e}
+    return {"resident": 4 * ((e + 1) + 2 * e + e), "streaming": 4 * e}
 
 
 def choose_emit_route(n: int, m: int, *, budget: int | None = None,

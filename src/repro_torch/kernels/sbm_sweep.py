@@ -26,6 +26,9 @@ launch, on the current stream.  The scratch comes from PyTorch's
 caching allocator, which orders reuse by stream, so calls on two
 streams never share it.
 
+Shared memory: static only (the tile index, the warp sums and the
+prefix); a CTA of 256 threads a tile (``analysis.kernel_audit``'s model).
+
 ``sbm_sweep`` launches the kernel for CUDA tensors (or raises) and
 runs the plain version (``ref.sbm_sweep``) for CPU tensors; there is no
 fallback between them.  ``sbm_sweep.launches`` counts kernel launches.

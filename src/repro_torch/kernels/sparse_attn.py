@@ -23,6 +23,12 @@ tokens, window 4096) that is ~1.3e12 FLOP, ~1.3 ms, against ~0.67 GB of
 q/k/v/out (~0.2 ms).  bfloat16 inputs run on the tensor cores
 (``mma.sync``, float32 accumulate), float32 inputs on the CUDA cores.
 
+Shared memory a CTA: bfloat16, 128 threads and
+``2·(64 + 4·64)·(ceil(dh/16)·16 + 8)`` bytes (q rows and two stages of k
+and v); float32, 256 threads and ``4·((64 + 2·64)·(dh + 4) + 64·80)``
+bytes (q, k and v rows and the P tile).  The grid is
+``(Sq/bq · ceil(bq/64), BH)``.
+
 Accuracy against the plain version (``BF16_TOL``, ``F32_TOL``).  In
 float32 both compute the same sums in another order: 2e-5.  In bfloat16
 the kernel rounds P to bf16 before P·V (relative error <= 2^-8 per
@@ -63,6 +69,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_TOL = dict(atol=1e-4, rtol=2 ** -7, ptol=2 ** -8, rms=2 ** -8)
 F32_TOL = dict(atol=2e-5, rtol=2e-5, ptol=0.0, rms=2e-5)
 MAX_DH = 256
+_INT32_MAX = 2 ** 31 - 1
 # CUDA's limit on gridDim.y, which carries batch·head
 _MAX_BH = 65535
 
@@ -73,6 +80,10 @@ def _check(q, k, v, starts, ends, *, bq: int, bkv: int,
     if bq < 1 or bkv < 1 or sink_end < 0:
         raise ValueError(f"need bq >= 1, bkv >= 1, sink_end >= 0; got "
                          f"bq={bq} bkv={bkv} sink_end={sink_end}")
+    if max(bq, bkv, sink_end) > _INT32_MAX:
+        # the kernel takes all three as a C int, which ctypes would wrap
+        raise ValueError(f"bq, bkv and sink_end must be <= {_INT32_MAX}; "
+                         f"got bq={bq} bkv={bkv} sink_end={sink_end}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.ndim != 3 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (BH, S, dh) "

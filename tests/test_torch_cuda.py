@@ -1125,3 +1125,30 @@ def test_distributed_gloo_p4_spawn_on_this_torch(card, tmp_path):
     assert caps[2] < caps[1] < caps[0], caps
     assert out[0][K("P4", "all_overlap", "K")] == dist_cases.ALL_OVERLAP_N ** 2
     assert out[0][K("P4", "clustered", "K")] == 0
+
+
+def test_auditor_on_the_card_captures_every_kernel_and_refuses_a_launch(card):
+    """``run_all(device="cuda")``: every kernel-matrix entry captured at
+    its production shapes, K1-K8's entry points all launched, no error
+    finding; the corpus's over-budget wrapper is flagged as
+    ``K_SMEM_BUDGET`` and refused before its launch runs."""
+    from pathlib import Path
+
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis.corpus import run_corpus
+
+    report = run_all(device="cuda")
+    assert report.ok(), report.summary()
+    assert report.kernel_entries and all(report.kernel_entries.values())
+    captured = {e for v in report.kernel_entries.values() for e in v}
+    assert {"sbm_sweep_launch", "twopass_emit_launch",
+            "bfm_tile_counts_launch", "bfm_mask_launch",
+            "emit_stream_launch", "csr_decode_launch", "sparse_attn_launch",
+            "itm_walk_launch"} <= captured
+    assert not report.not_run
+    corpus = Path(__file__).resolve().parent / "torch_analysis_corpus"
+    results = run_corpus(corpus, device="cuda")
+    assert results and all(r.ran and r.ok for r in results), results
+    refused = [r for r in results
+               if r.name == "over_budget_wrapper_on_the_card"]
+    assert refused and refused[0].got_codes == ("K_SMEM_BUDGET",)

@@ -160,7 +160,7 @@ def test_plain_streaming_and_csr_equal_the_uncompacted_lookup():
 
 def test_route_ladder_thresholds_and_monkeypatched_budget(monkeypatch):
     need = ops.emit_route_bytes(3, 4)
-    assert need == {"resident": 4 * (3 * 8 + 7), "streaming": 28}
+    assert need == {"resident": 4 * (8 + 2 * 7 + 7), "streaming": 28}
     # the real budget (the H100's 50 MB L2): resident to n+m ~ 3.1e6,
     # streaming to 1.25e7, then csr (or xla for dense-only callers)
     assert ops.choose_emit_route(1_500_000, 1_624_999) == "resident"
@@ -177,8 +177,8 @@ def test_route_ladder_thresholds_and_monkeypatched_budget(monkeypatch):
     E = S.n + U.n
     k = _k(arrs)
     want = None
-    for budget, route in ((16 * E + 12, "resident"), (16 * E + 11,
-                                                      "streaming"),
+    for budget, route in ((16 * E + 4, "resident"), (16 * E + 3,
+                                                     "streaming"),
                           (4 * E, "streaming"), (4 * E - 1, "csr")):
         monkeypatch.setattr(ops, "EMIT_L2_TABLE_BUDGET", budget)
         for d in (1, 2):

@@ -372,9 +372,9 @@ def test_hsbm_emit_route_under_auto_is_measured():
 def test_route_at_kolns_table_sizes():
     """Koln's hybrid tables (``koln_like_workload(0)``: 50 cells, cap
     21,376, suffix 9,424, so n_emit_s = n_emit_u = 1,540,000) need
-    49,280,012 B resident: under the 50 MB L2 budget by 0.7 MB."""
+    49,280,004 B resident: under the 50 MB L2 budget by 0.7 MB."""
     e = 50 * (21_376 + 9_424)
-    assert ops.emit_route_bytes(e, e)["resident"] == 49_280_012
+    assert ops.emit_route_bytes(e, e)["resident"] == 49_280_004
     assert ops.choose_emit_route(e, e) == "resident"
     assert ops.choose_emit_route(e + 60_000, e + 60_000) == "streaming"
 
