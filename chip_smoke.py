@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's matching paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's matching and LM paths on one NVIDIA card.
 
 Run from the repository root on a host with a CUDA card and ``nvcc``:
 
@@ -174,6 +174,26 @@ or the JAX package.  Phases, each of which must pass:
             limit) and the audit's wall time; any error finding or missed
             defect fails.
 
+26. lm      the LM serving path (``repro_torch.models``,
+            ``launch/lm_serve``) of Zamba2-2.7B at its published width,
+            parameters from a seeded ``torch.Generator``: (a) 6 of its 54
+            layers in float32, a 64-token prefill and 8 decode steps at B
+            2 on the card against the CPU; (b) ``chunked_sdpa`` at the
+            shared block's width (bf16, 32 heads, dh 80) over 4,496
+            tokens, past window 4,096 + sink 128, against a float64
+            dense softmax under the token mask, and the gather read of
+            the last position against it and the masked read; (c) all
+            54 layers in float32: ``forward`` over 4,496 tokens against
+            a 4,480-token ``prefill`` and 16 ``decode_step``s; (d)
+            ``python -m repro_torch.launch.lm_serve --arch zamba2-2.7b``
+            (bf16, B 4, 48 + 32) in a fresh process; (e) bf16, timed: B
+            1 with a 4,480-token prompt and B 4 with 48, 32 generated
+            each: prefill ms, decode ms a token, tok/s,
+            ``max_memory_allocated``, and one decode step under
+            ``torch.profiler`` split into matmul, attention, ssd/conv and
+            elementwise.  It launches none of K1-K8 (the JAX LM path
+            reaches no ``pallas_call``).
+
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
 JSON line with a record per kernel, and as the last line
@@ -224,6 +244,25 @@ ZAMBA2 = dict(seq=32_768, heads=32, dh=80, block=128, window=4096, sink=1,
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+
+
+# Phase 26, the LM serving path of Zamba2-2.7B
+# (src/repro_torch/configs/zamba2_2_7b.py): (a) 6 of its 54 layers (one
+# Mamba group and the shared block) in float32, B 2, a 64-token prefill
+# and 8 steps on the card and on the CPU; (b) chunked_sdpa at the shared
+# block's width, S 4,496 (past window 4,096 + sink 128); (c) all 54
+# layers in float32, B 1, forward over 4,496 tokens against a 4,480-token
+# prefill (35 chunks of 128) and 16 steps; (d) the launcher's docstring
+# example without --smoke; (e) bf16 timed runs (batch, prompt, generated)
+LM_PHASE = dict(arch="zamba2_2_7b", a_layers=6, a_batch=2,
+                a_prompt=64, a_steps=8, b_seq=4496, c_prompt=4480,
+                c_steps=16, e_runs=((1, 4480, 32), (4, 48, 32)),
+                cli=("--batch", "4", "--prompt-len", "48", "--gen", "32"))
+# float32 logits, held as |got - want| <= tol + tol·|want|: (a) the card
+# against the CPU (6 layers), (c) the cache path against the forward (54
+# layers; the SSD's chunks against its recurrence)
+LM_A_TOL = 1e-3
+LM_C_TOL = 2e-3
 
 
 class SmokeError(RuntimeError):
@@ -2674,6 +2713,307 @@ def run_audit(card: str) -> dict:
     return {"seconds": wall, "findings": len(report.findings)}
 
 
+def lm_teacher_forced(model, cfg, tokens, n_pre: int):
+    """Float32 logits at positions ``n_pre − 1 ..`` of ``tokens``: a
+    prefill of the first ``n_pre`` tokens, then one ``decode_step`` a
+    token."""
+    import torch
+    from repro_torch.models import transformer as T
+    B, S = tokens.shape
+    cache = T.init_cache(cfg, B, S + 1, tokens.device)
+    logits, cache = T.prefill(model, tokens[:, :n_pre], cfg, cache)
+    out = [logits]
+    for i in range(n_pre, S):
+        logits, cache = T.decode_step(model, tokens[:, i:i + 1], cfg, cache,
+                                      i)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def check_logits(got, want, tol: float, what: str) -> float:
+    """``|got - want| <= tol + tol·|want|`` on finite logits; the max
+    abs err."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    check(got.shape == want.shape, f"{what}: shapes {tuple(got.shape)} and "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          f"{what}: non-finite logits")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= tol + tol * want.abs()).all()),
+          f"{what}: max abs err {err} above {tol} + {tol}·|want|")
+    return err
+
+
+def dense_masked_attention(q, k, v, window: int, sink: int):
+    """float64 softmax attention of one (1, S, H, 1, dh) query set under
+    the token mask of ``models/attention.py`` (causal, and ``kv > q −
+    window or kv < sink``), a head at a time; the output and the same
+    weights applied to ``|v|``."""
+    import torch
+    S, H, dh = q.shape[1], q.shape[2], q.shape[-1]
+    pos = torch.arange(S, device=q.device)
+    ok = (pos[None, :] <= pos[:, None]) & (
+        (pos[None, :] > pos[:, None] - window) | (pos[None, :] < sink))
+    out = torch.empty((1, S, H, 1, dh), dtype=torch.float64, device=q.device)
+    out_abs = torch.empty_like(out)
+    for h in range(H):
+        qh, kh, vh = (t[0, :, h].reshape(S, dh).double() for t in (q, k, v))
+        s = (qh @ kh.T) * dh ** -0.5
+        p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+        out[0, :, h, 0] = p @ vh
+        out_abs[0, :, h, 0] = p @ vh.abs()
+    return out, out_abs
+
+
+def lm_step_times(model, cfg, prompts, gen: int):
+    """``launch.lm_serve.generate`` with a CUDA event at each of its
+    marks; returns the prefill ms, the decode steps' ms (step and argmax),
+    the host seconds of the decode loop and the last logits."""
+    import torch
+    from repro_torch.launch import lm_serve
+    events = []
+
+    def mark():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    _, logits, _, host = lm_serve.generate(model, cfg, prompts, gen,
+                                           on_step=mark)
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return ms[0], ms[1:], host, logits
+
+
+def lm_frames(event) -> list:
+    """The Python frames above a profiled op: its recorded stack, or the
+    names of its Python-function parents ("file.py(line): name")."""
+    if event.stack:
+        return list(event.stack)
+    frames, e = [], event.cpu_parent
+    while e is not None:
+        frames.append(e.name)
+        e = e.cpu_parent
+    return frames
+
+
+def lm_group(stack) -> str:
+    """The layer of the LM path that launched a kernel, from the Python
+    frames of the op that launched it: the ``linear`` products (matmul),
+    ``models/attention.py`` outside them (attention), ``models/ssm.py``
+    outside them (ssd/conv: the conv, the SSD or recurrence, the gated
+    norm), the rest of ``models/`` (elementwise: norms, RoPE, embedding,
+    SwiGLU, residual adds), else other."""
+    frames = [f for f in stack or () if "repro_torch/models/" in f]
+    for group, test in (("matmul", lambda f: "layers.py" in f
+                         and f.endswith(": linear")),
+                        ("attention", lambda f: "attention.py" in f),
+                        ("ssd/conv", lambda f: "ssm.py" in f),
+                        ("elementwise", lambda f: True)):
+        if any(test(f) for f in frames):
+            return group
+    return "other"
+
+
+def lm_decode_split(model, cfg, prompts, card: str, what: str) -> dict:
+    """One decode step after a prefill of ``prompts`` under
+    ``torch.profiler``: device time by kernel, grouped by ``lm_group``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    cache = T.init_cache(cfg, B, P + 2, prompts.device)
+    logits, cache = T.prefill(model, prompts, cfg, cache)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # torch 2.11 records an op's Python stack only in verbose mode
+    verbose = torch._C._profiler._ExperimentalConfig(verbose=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts, with_stack=True,
+                 experimental_config=verbose) as prof:
+        logits, cache = T.decode_step(model, tok, cfg, cache, P)
+        torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    groups: dict = {}
+    kernels: dict = {}
+    n = 0
+    for e in prof.events():
+        for k in e.kernels:
+            g = lm_group(lm_frames(e))
+            groups[g] = groups.get(g, 0.0) + k.duration
+            kernels[(g, k.name)] = kernels.get((g, k.name), 0.0) + k.duration
+            n += 1
+    total = sum(groups.values())
+    if not total:
+        print(f"[lm] {what}: decode-step split not measured (the profiler "
+              f"recorded no device time; step wall {wall_us!r} us under the "
+              f"profiler)")
+        return {}
+    print(f"[lm] {what}: one decode step under torch.profiler, {n} kernels, "
+          f"device time {total!r} us of {wall_us!r} us wall (busy "
+          f"{total / wall_us!r}): " + ", ".join(
+              f"{g} {t!r} us ({t / total:.4f})" for g, t in
+              sorted(groups.items(), key=lambda x: -x[1])) + f" on {card}")
+    top = sorted(kernels.items(), key=lambda x: -x[1])[:10]
+    for (g, name), t in top:
+        print(f"[lm] {what}: top-10 {t!r} us [{g}] {name[:110]} on {card}")
+    return {"kernels": n, "device_us": total, "wall_us": wall_us, **groups}
+
+
+def run_lm(card: str) -> dict:
+    """Phase 26: the LM serving path of Zamba2-2.7B (``LM_PHASE``),
+    (a)-(e)."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sparse_attn import BF16_TOL
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, dev = LM_PHASE, "cuda"
+    base = get_config(spec["arch"])
+    f32 = dataclasses.replace(base, dtype="float32")
+    rng = np.random.default_rng(26)
+    numbers: dict = {}
+
+    # -- (a) the card against the CPU, reduced depth, float32 ---------------
+    cfg = dataclasses.replace(f32, n_layers=spec["a_layers"])
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = T.LM(cfg, None, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (spec["a_batch"], spec["a_prompt"] + spec["a_steps"])))
+    got = lm_teacher_forced(model, cfg, tok.to(dev), spec["a_prompt"])
+    want = lm_teacher_forced(cpu, cfg, tok, spec["a_prompt"])
+    err = check_logits(got, want, LM_A_TOL, "(a) card against CPU")
+    print(f"[lm] (a) {cfg.name} at {cfg.n_layers} layers, float32, B "
+          f"{spec['a_batch']}, prefill {spec['a_prompt']} + "
+          f"{spec['a_steps']} steps: logits {tuple(got.shape)} on the card "
+          f"against the CPU, max abs err {err!r} (held to {LM_A_TOL} + "
+          f"{LM_A_TOL}·|want|)")
+    numbers["a_max_abs_err"] = err
+    del model, cpu, got, want
+
+    # -- (b) chunked_sdpa at the shared block's width past window + sink ----
+    S, H, dh = spec["b_seq"], base.n_heads, base.d_head
+    window, sink = base.window, base.n_sink_blocks * base.block_kv
+    check(S > window + sink, "(b) must run past window + sink")
+    g = torch.Generator(dev).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((1, S, H, 1, dh), (1, S, H, dh), (1, S, H, dh)))
+    pos = torch.arange(S, device=dev)
+
+    def masked():
+        return A.chunked_sdpa(q, k, v, pos, S, window=window, sink=sink,
+                              q_chunk=base.q_chunk)
+    out = masked()
+    want, want_abs = dense_masked_attention(q, k, v, window, sink)
+    err, rel = check_close(out, want, "(b) chunked_sdpa against float64",
+                           want_abs_v=want_abs, **BF16_TOL)
+    last = S - 1
+    k_c, v_c, kv_pos, allowed = A.window_gather(k, v, last, window, sink)
+    gath = A.chunked_sdpa(q[:, last:], k_c, v_c, pos[last:], S,
+                          kv_pos=kv_pos, kv_allowed=allowed,
+                          q_chunk=base.q_chunk)
+    err_g, _ = check_close(gath, want[:, last:], "(b) gather against "
+                           "float64", want_abs_v=want_abs[:, last:],
+                           **BF16_TOL)
+    err_gm, _ = check_close(gath, out[:, last:], "(b) gather against "
+                            "masked", atol=1e-4, rtol=2 ** -7, rms=2 ** -8)
+    print(f"[lm] (b) chunked_sdpa bf16 B 1 S {S} H {H} dh {dh} window "
+          f"{window} sink {sink}: against a float64 dense softmax under the "
+          f"token mask, max abs err {err!r}, relative RMS {rel!r} (held to "
+          f"{BF16_TOL}); the gather read at position {last} ({k_c.shape[1]} "
+          f"rows): {err_g!r} against float64, {err_gm!r} against the masked "
+          f"read (1e-4 + 2^-7·|masked|)")
+    numbers["b_chunked_sdpa_ms"] = time_ms(masked)
+    print(f"[lm] (b) chunked_sdpa at that shape: "
+          f"{numbers['b_chunked_sdpa_ms']!r} ms (median of {REPS}) on "
+          f"{card}")
+    del q, k, v, out, want, want_abs, gath
+
+    # -- (c) full depth, float32: the cache path against the forward --------
+    model = T.init_params(f32, torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in model.parameters())
+    n_pre, steps = spec["c_prompt"], spec["c_steps"]
+    tok = torch.from_numpy(rng.integers(0, f32.vocab, (1, n_pre + steps))
+                           ).to(dev)
+    check(n_pre > window + sink, "(c) must prefill past window + sink")
+    with torch.no_grad():
+        fwd = T.forward(model, tok, f32)[0][:, n_pre - 1:]
+    dec = lm_teacher_forced(model, f32, tok, n_pre)
+    err = check_logits(dec, fwd, LM_C_TOL, "(c) prefill + decode against "
+                       "forward")
+    print(f"[lm] (c) {f32.name}, all {f32.n_layers} layers, {n_params} "
+          f"parameters, float32, B 1: forward over {n_pre + steps} tokens "
+          f"against a {n_pre}-token prefill and {steps} decode steps, "
+          f"{steps + 1} positions, max abs err {err!r} (held to {LM_C_TOL} "
+          f"+ {LM_C_TOL}·|want|; max |logit| {float(fwd.abs().max())!r})")
+    numbers["c_max_abs_err"] = err
+    del fwd, dec
+
+    # -- (d) the launcher in a fresh process ---------------------------------
+    cmd = [sys.executable, "-m", "repro_torch.launch.lm_serve", "--arch",
+           spec["arch"], *spec["cli"]]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run_out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    lines = run_out.stdout.strip().splitlines()
+    check(run_out.returncode == 0 and len(lines) == 5,
+          f"{' '.join(cmd[1:])} exited {run_out.returncode}:\n"
+          f"{run_out.stdout[-2000:]}\n{run_out.stderr[-2000:]}")
+    check(lines[0] == f"arch={base.name} pattern={base.attn_pattern}"
+          and re.fullmatch(r"prefill: \d+x\d+ tokens in .*", lines[1])
+          and re.fullmatch(r"decode:  \d+x\d+ tokens in .*", lines[2])
+          and lines[3].startswith("sample token ids: [")
+          and lines[4] == f"device={dev} last logits finite=True",
+          f"the launcher printed:\n{run_out.stdout}")
+    for line in lines:
+        print(f"[lm] (d) {line}" + (f" on {card}" if " in " in line
+                                    else ""))
+    print(f"[lm] (d) {' '.join(cmd[1:])}: exit 0, wall {wall!r} s (the "
+          f"interpreter, the init and the casts included) on {card}")
+    numbers["d_wall_s"] = wall
+
+    # -- (e) bf16, full depth, timed: the weights stored in bf16 once -------
+    cfg = dataclasses.replace(f32, dtype="bfloat16")
+    T.to_compute(model, cfg)
+    for B, P, gen in spec["e_runs"]:
+        prompts = lm_serve.make_prompts(cfg, B, P, 0, dev)
+        lm_step_times(model, cfg, prompts, 2)              # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        pre_ms, step_ms, host, logits = lm_step_times(model, cfg, prompts,
+                                                      gen)
+        check(bool(torch.isfinite(logits).all()), "(e) non-finite logits")
+        med = statistics.median(step_ms)
+        mem = torch.cuda.max_memory_allocated()
+        tag = f"B{B}_P{P}"
+        numbers.update({f"e_{tag}_prefill_ms": pre_ms,
+                        f"e_{tag}_decode_ms": med,
+                        f"e_{tag}_decode_tok_s": B * 1e3 / med,
+                        f"e_{tag}_max_memory_bytes": mem})
+        print(f"[lm] (e) {cfg.name} bf16, all {cfg.n_layers} layers, B {B}, "
+              f"prompt {P}, {gen} generated: prefill {pre_ms!r} ms "
+              f"({B * P * 1e3 / pre_ms!r} tok/s); decode {med!r} ms a token "
+              f"(median of {gen - 1} steps, min {min(step_ms)!r}, max "
+              f"{max(step_ms)!r}; {B * 1e3 / med!r} tok/s; the loop "
+              f"{host!r} s on the host clock); max_memory_allocated {mem} "
+              f"on {card}")
+        numbers.update({f"e_{tag}_split_{k}": val for k, val in
+                        lm_decode_split(model, cfg, prompts, card,
+                                        f"(e) B {B} P {P}").items()})
+    del model
+    torch.cuda.empty_cache()
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2707,6 +3047,7 @@ def main() -> int:
     out6 = run_slice6("cuda", SERVE)
     out7 = run_slice7("cuda", FIG9, 541_222, DYN, expect)
     run_audit(card)
+    run_lm(card)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
                          **out5["launches"], **out6["launches"],

@@ -1,0 +1,26 @@
+"""Yi-9B — llama-arch GQA kv=4  [arXiv:2403.04652; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name='yi-9b',
+    family='dense',
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_head=128,
+    d_ff=11008,
+    vocab=64000,
+)
+
+SMOKE = ModelConfig(
+    name='yi-9b-smoke',
+    family='dense',
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_head=16,
+    d_ff=192,
+    vocab=256,
+)

@@ -32,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+INT32_MAX = 2 ** 31 - 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -198,6 +199,15 @@ def launch(device, fn, *args) -> int:
         return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
     with torch.cuda.device(idx):
         return fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+
+
+def check_c_int(what: str, **values: int) -> None:
+    """Refuse, on every device, a value past INT32_MAX meant for a C
+    ``int`` argument: ctypes wraps it silently (2^32 arrives as 0)."""
+    big = [f"{k} = {v}" for k, v in values.items() if v > INT32_MAX]
+    if big:
+        raise ValueError(f"{what}: {', '.join(big)} must be <= {INT32_MAX} "
+                         "(a C int argument)")
 
 
 def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:

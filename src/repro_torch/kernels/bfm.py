@@ -56,6 +56,12 @@ def _check_bounds(s_lo, s_hi, u_lo, u_hi) -> None:
                          f"{s_lo.shape[1]} and {u_lo.shape[1]}")
 
 
+def _check_d(what: str, s_lo) -> None:
+    # d reaches the kernels as a C int (n and m as long long)
+    if s_lo.ndim == 2:
+        _build.check_c_int(what, d=s_lo.shape[1])
+
+
 def fma_scale(*bounds: torch.Tensor) -> float:
     """K = 2^k for K3's FMA compare on these float32 bounds, or 0.0 where
     it would not be exact.
@@ -95,6 +101,7 @@ def bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, *, ts: int = 256,
     Shared memory a CTA of 256 threads: ``16·ts`` bytes on the d1 path
     (the S strip as float4), else ``8·d·(ts + tu)`` (both tiles' bounds).
     """
+    _check_d("bfm_tile_counts", s_lo)
     n, m = s_lo.shape[0], u_lo.shape[0]
     if ts < 1 or tu < 1 or n % ts or m % tu:
         raise ValueError(f"bfm_tile_counts needs n % ts == m % tu == 0, got "
@@ -141,6 +148,7 @@ def bfm_mask(s_lo, s_hi, u_lo, u_hi) -> torch.Tensor:
     Persistent CTAs of 256 threads, static shared memory only (two
     32-row tiles of S bounds).
     """
+    _check_d("bfm_mask", s_lo)
     if s_lo.device.type == "cpu":
         return ref.bfm_mask(s_lo, s_hi, u_lo, u_hi)
     if s_lo.device.type != "cuda":

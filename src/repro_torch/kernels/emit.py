@@ -181,6 +181,7 @@ def twopass_emit(offs, counts, starts, perm_s, perm_u, *,
     ``EMIT_TILE_MAX``, by the tile rule above), at ``4·T + 3084`` bytes
     of shared memory: the owner array and a 3 × 257-entry window.
     """
+    _build.check_c_int("twopass_emit", n=perm_s.shape[0], m=perm_u.shape[0])
     if max_pairs == 0:
         return _empty_pairs(offs.device)
     if offs.device.type == "cpu":
@@ -212,6 +213,8 @@ def twopass_emit_streaming(tab, perm_s, perm_u, *, max_pairs: int,
     4112`` bytes of shared memory (``bl`` up to 56,960; a larger tile is
     refused at the launch).
     """
+    _build.check_c_int("twopass_emit_streaming", n=perm_s.shape[0],
+                       m=perm_u.shape[0], bl=lane_pad(block))
     if max_pairs == 0:
         return _empty_pairs(tab.device)
     if tab.device.type == "cpu":
@@ -248,6 +251,8 @@ def csr_decode_window(tab, perm_s, perm_u, w0: int,
     stay within int32 slot ids.  A CTA of 256 threads a ``CSR_TILE``-slot
     tile, static shared memory only (its window and owner array).
     """
+    _build.check_c_int("csr_decode_window", n=perm_s.shape[0],
+                       m=perm_u.shape[0])
     if nslots == 0:
         return _empty_pairs(tab.device)
     if w0 < 0 or nslots < 0 or w0 + nslots > _INT32_MAX:

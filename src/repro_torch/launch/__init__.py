@@ -1,0 +1,2 @@
+"""Launchers of the port's LM stack (``python -m
+repro_torch.launch.lm_serve``)."""

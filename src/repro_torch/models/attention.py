@@ -1,0 +1,212 @@
+"""Attention blocks: GQA (with qk-norm / QKV-bias variants).
+
+The port of the JAX package's ``models/attention.py``: ``chunked_sdpa``,
+the cache write, and GQA init, cache and apply, with both decode reads
+of a ``ddm_window`` config (the masked full-context read and the
+``window_gather_decode`` gather of the window and the sink).  MLA
+(DeepSeek-V2) is not ported yet: ``attn_init``/``attn_apply`` raise
+``NotImplementedError`` for it (ROADMAP Queue 1 item 13).
+
+Scores are float32 products of the compute-dtype inputs (the
+reference's ``preferred_element_type=float32``): the inputs are upcast
+before the product, so a bf16 product never rounds them.  Keep TF32 off
+on the card (``torch.backends.cuda.matmul.allow_tf32 = False``, the
+default) or float32 scores lose 13 bits.  The query axis is processed in
+chunks of ``q_chunk`` rows, so the live score block is (B, H, G,
+q_chunk, Skv) float32.
+
+KV caches are dicts of preallocated (B, max_len, n_kv, dh) tensors that
+the cache write fills in place.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from .layers import apply_rope, linear, linear_init, rms_headnorm, \
+    rope_angles
+
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 13)"
+
+
+# ---------------------------------------------------------------------------
+# chunked scaled-dot-product core
+# ---------------------------------------------------------------------------
+
+def chunked_sdpa(q, k, v, q_pos, kv_valid_upto, *, causal: bool = True,
+                 window: int = 0, sink: int = 0, q_chunk: int = 256,
+                 scale: float | None = None, kv_pos=None, kv_allowed=None):
+    """q: (B,Sq,H,G,dh), k: (B,Skv,H,dh), v: (B,Skv,H,dv) → (B,Sq,H,G,dv).
+
+    ``q_pos``: (Sq,) absolute query positions.  ``kv_valid_upto``: number
+    of valid cache positions.  ``window``/``sink``: the DDM-planned read
+    [0, sink) ∪ (q_pos − window, q_pos].  ``kv_pos``: explicit absolute
+    positions of the kv rows (for gathered windows); then
+    ``kv_valid_upto`` applies to positions and ``kv_allowed`` (bool
+    (Skv,)) masks duplicate rows.
+    """
+    Sq, dh = q.shape[1], q.shape[-1]
+    Skv = k.shape[1]
+    scale = scale if scale is not None else dh ** -0.5
+    if kv_pos is None:
+        kv_pos = torch.arange(Skv, device=q.device)
+    ok_kv = kv_pos < kv_valid_upto
+    if kv_allowed is not None:
+        ok_kv = ok_kv & kv_allowed
+    kf, vf = k.float(), v.float()
+    # the reference pads the last chunk with position -1 rows and drops
+    # them; rows are independent, so here the last chunk is just shorter
+    cq = min(q_chunk, Sq)
+    outs = []
+    for c0 in range(0, Sq, cq):
+        qc, pc = q[:, c0:c0 + cq], q_pos[c0:c0 + cq]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(), kf) * scale
+        ok = ok_kv[None, :]
+        if causal:
+            ok = ok & (kv_pos[None, :] <= pc[:, None])
+        if window > 0:
+            ok = ok & ((kv_pos[None, :] > pc[:, None] - window)
+                       | (kv_pos[None, :] < sink))
+        s = s.masked_fill(~ok, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(torch.isnan(p), 0.0, p)     # fully-masked rows
+        # P rounds to v's dtype before the float32 P·V product
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), vf)
+        outs.append(o.to(v.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _cache_write(cache: dict, new: dict, start: int) -> dict:
+    """Write ``new``'s rows at ``[start, start + S)`` of the cache, in place.
+
+    The reference's ``dynamic_update_slice`` clamps a start past
+    ``max_len − S`` down to it, so an overlong write lands on the wrong
+    positions; the port raises ``ValueError`` there instead.
+    """
+    for key, val in new.items():
+        buf = cache[key]
+        S = val.shape[1]
+        if start < 0 or start + S > buf.shape[1]:
+            raise ValueError(f"cache write of {S} rows at {start} is outside "
+                             f"the cache's {buf.shape[1]} positions")
+        buf[:, start:start + S] = val.to(buf.dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+class GQA(nn.Module):
+    def __init__(self, wq, wk, wv, wo):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+
+
+def gqa_init(cfg: ModelConfig, *, generator=None, device="cuda") -> GQA:
+    d, dh = cfg.d_model, cfg.d_head
+    kw = dict(generator=generator, device=device)
+    return GQA(
+        linear_init(d, cfg.n_heads * dh, bias=cfg.qkv_bias, **kw),
+        linear_init(d, cfg.n_kv_heads * dh, bias=cfg.qkv_bias, **kw),
+        linear_init(d, cfg.n_kv_heads * dh, bias=cfg.qkv_bias, **kw),
+        linear_init(cfg.n_heads * dh, d,
+                    std=(cfg.n_heads * dh) ** -0.5
+                    / max(2 * cfg.n_layers, 1) ** 0.5, **kw))
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device="cuda") -> dict:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def window_gather(k_all, v_all, pos: int, window: int, sink: int):
+    """The gather decode's kv rows for the query at ``pos``: the window
+    ``[pos + 1 − W, pos]`` (its start clipped into the cache) after the
+    sink prefix ``[0, sink)``.  Returns (k, v, kv_pos, kv_allowed); window
+    rows that repeat a sink row are not allowed."""
+    dev = k_all.device
+    Smax = k_all.shape[1]
+    W = min(window, Smax)
+    start = min(max(pos + 1 - W, 0), Smax - W)
+    k_win = k_all[:, start:start + W]
+    v_win = v_all[:, start:start + W]
+    kv_pos_w = start + torch.arange(W, device=dev)
+    if sink <= 0:
+        return k_win, v_win, kv_pos_w, torch.ones(W, dtype=torch.bool,
+                                                  device=dev)
+    return (torch.cat([k_all[:, :sink], k_win], dim=1),
+            torch.cat([v_all[:, :sink], v_win], dim=1),
+            torch.cat([torch.arange(sink, device=dev), kv_pos_w]),
+            torch.cat([torch.ones(sink, dtype=torch.bool, device=dev),
+                       kv_pos_w >= sink]))
+
+
+def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions,
+              cache: dict | None = None, cur_len: int = 0,
+              causal: bool = True, window: int = 0, sink: int = 0):
+    """One attention sublayer.  Returns (y, cache)."""
+    B, S, _ = x.shape
+    dh = cfg.d_head
+    dt = x.dtype
+    q = linear(p.wq, x, dt).reshape(B, S, cfg.n_heads, dh)
+    k = linear(p.wk, x, dt).reshape(B, S, cfg.n_kv_heads, dh)
+    v = linear(p.wv, x, dt).reshape(B, S, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q, k = rms_headnorm(q), rms_headnorm(k)
+    cos, sin = rope_angles(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is not None:
+        cache = _cache_write(cache, {"k": k, "v": v}, cur_len)
+        k_all, v_all = cache["k"], cache["v"]
+        valid = cur_len + S
+    else:
+        k_all, v_all = k, v
+        valid = S
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, S, cfg.n_kv_heads, g, dh)   # head h = kv·g + j
+
+    if (cache is not None and S == 1 and window > 0
+            and cfg.window_gather_decode):
+        # DDM-window gather decode: only the window and the sink prefix
+        # are read from the cache (traffic ∝ window, not context)
+        k_cat, v_cat, kv_pos, allowed = window_gather(k_all, v_all, cur_len,
+                                                      window, sink)
+        out = chunked_sdpa(qg, k_cat, v_cat, positions, valid,
+                           causal=causal, q_chunk=cfg.q_chunk,
+                           kv_pos=kv_pos, kv_allowed=allowed)
+    else:
+        out = chunked_sdpa(qg, k_all, v_all, positions, valid,
+                           causal=causal, window=window, sink=sink,
+                           q_chunk=cfg.q_chunk)
+    return linear(p.wo, out.reshape(B, S, -1), dt), cache
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _no_mla(cfg: ModelConfig) -> None:
+    if cfg.mla:
+        raise NotImplementedError(f"MLA attention ({cfg.name}) {NOT_PORTED}")
+
+
+def attn_init(cfg: ModelConfig, *, generator=None, device="cuda") -> GQA:
+    _no_mla(cfg)
+    return gqa_init(cfg, generator=generator, device=device)
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device="cuda") -> dict:
+    _no_mla(cfg)
+    return gqa_cache_init(cfg, batch, max_len, dtype, device)
+
+
+def attn_apply(p, x, cfg: ModelConfig, **kw):
+    _no_mla(cfg)
+    return gqa_apply(p, x, cfg, **kw)

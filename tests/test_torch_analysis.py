@@ -39,6 +39,8 @@ from repro_torch.analysis.capture import lookup_entry  # noqa: E402
 from repro_torch.analysis.corpus import run_corpus  # noqa: E402
 from repro_torch.analysis.__main__ import main  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bfm as tbfm  # noqa: E402
+from repro_torch.kernels import emit as temit  # noqa: E402
 from repro_torch.kernels import sparse_attn as tsa  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -333,3 +335,50 @@ def test_sparse_attn_refuses_c_int_arguments_past_int32(arg):
         tsa._check(q, q, q, starts, ends, **kw)
     kw[arg] -= 2 ** 32                  # what a C int would have received
     tsa._check(q, q, q, starts, ends, **kw)
+
+
+def _past_int32(dtype):
+    # 2^31 entries of stride 0: the argument's size without its memory
+    return torch.zeros(1, dtype=dtype).expand(2 ** 31)
+
+
+def _emit_call(wrapper, arg):
+    i32 = torch.int32
+    perm = torch.zeros(2, dtype=i32)
+    perm_s = _past_int32(i32) if arg == "n" else perm
+    perm_u = _past_int32(i32) if arg == "m" else perm
+    tab = torch.zeros((4, 512), dtype=i32)
+    if wrapper == "twopass_emit":
+        z = torch.zeros(5, dtype=i32)
+        return lambda: temit.twopass_emit(z, z[:4], z[:4], perm_s, perm_u,
+                                          max_pairs=4)
+    if wrapper == "twopass_emit_streaming":
+        block = 2 ** 31 if arg == "bl" else 128
+        return lambda: temit.twopass_emit_streaming(
+            tab, perm_s, perm_u, max_pairs=4, block=block)
+    return lambda: temit.csr_decode_window(tab, perm_s, perm_u, 0, 4)
+
+
+@pytest.mark.parametrize("wrapper,arg", [
+    ("twopass_emit", "n"), ("twopass_emit", "m"),
+    ("twopass_emit_streaming", "n"), ("twopass_emit_streaming", "m"),
+    ("twopass_emit_streaming", "bl"),
+    ("csr_decode_window", "n"), ("csr_decode_window", "m")])
+def test_emit_wrappers_refuse_c_int_arguments_past_int32(wrapper, arg):
+    # K2, K5 and K6 take n, m (and K5 its tile bl) as a C int: the wrapper
+    # refuses 2^31 before its device branch, so on the CPU too
+    with pytest.raises(ValueError, match=f"{wrapper}: {arg} = 2147483648 "
+                       "must be <= 2147483647"):
+        _emit_call(wrapper, arg)()
+
+
+@pytest.mark.parametrize("wrapper", ["bfm_tile_counts", "bfm_mask"])
+def test_bfm_wrappers_refuse_d_past_int32(wrapper):
+    # K3 and K4 take d as a C int (n and m as long long)
+    wide = torch.zeros((1, 1), dtype=torch.float32).expand(256, 2 ** 31)
+    fn = getattr(tbfm, wrapper)
+    with pytest.raises(ValueError, match=f"{wrapper}: d = 2147483648 must "
+                       "be <= 2147483647"):
+        fn(wide, wide, wide, wide)
+    narrow = torch.zeros((256, 1), dtype=torch.float32)
+    assert fn(narrow, narrow + 1, narrow, narrow + 1).sum() > 0

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
     # kernels first: the order in which a core <-> kernels cycle shows
     code = ("import sys, repro_torch.kernels, repro_torch.core, "
             "repro_torch.convert, repro_torch.sparse, "
-            "repro_torch.serve.harness, repro_torch.analysis.steady\n"
+            "repro_torch.serve.harness, repro_torch.analysis.steady, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.launch.lm_serve\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
