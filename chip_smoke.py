@@ -193,6 +193,26 @@ or the JAX package.  Phases, each of which must pass:
             ``torch.profiler`` split into matmul, attention, ssd/conv and
             elementwise.  It launches none of K1-K8 (the JAX LM path
             reaches no ``pallas_call``).
+27. lm27    the LM serving path of the MoE, MLA and audio families at
+            their published widths (``LM27``): (a) DeepSeek-V2-236B at 2
+            of its 60 layers (1 dense + 1 MoE: d 5120, 128 heads, MLA
+            kv_lora 512 + rope 64, 160 experts top-6), Phi-3.5-MoE at 2
+            of 32 and Whisper-medium at 2 + 2 over its 1,500 frames, in
+            float32, a 64-token prefill and 8 decode steps at B 2 on the
+            card against the CPU on the same weights, with every token
+            whose experts differ between the devices printed (from
+            ``MoE.route_log``); (b) on (a)'s DeepSeek-V2, MLA's absorbed
+            decode against its expanded read; (c) DeepSeek-V2 at 4
+            layers, float32, ``mla_absorb=False`` and ``capacity_factor``
+            raised to 160 (no token drops, checked): ``forward`` over
+            1,040 tokens against a 1,024-token prefill and 16 steps; (d)
+            ``python -m repro_torch.launch.lm_serve`` for
+            ``whisper-medium`` and, with ``--smoke``, the two MoE configs
+            in fresh processes; (e) bf16, timed as 26 (e): DeepSeek-V2 at
+            4 layers (B 1 × 1,024 and B 4 × 48, with each MoE layer's
+            share of (token, slot) assignments dropped by capacity in the
+            prefill), Phi-3.5-MoE at 8 layers and Whisper-medium in full
+            (B 4 × 48).  It launches none of K1-K8.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -263,6 +283,34 @@ LM_PHASE = dict(arch="zamba2_2_7b", a_layers=6, a_batch=2,
 # layers; the SSD's chunks against its recurrence)
 LM_A_TOL = 1e-3
 LM_C_TOL = 2e-3
+# Phase 27, the LM serving path of the MoE, MLA and audio families at
+# their published widths (src/repro_torch/configs/deepseek_v2_236b.py,
+# phi3_5_moe_42b.py, whisper_medium.py): (a) each at reduced depth in
+# float32, B 2, a 64-token prefill and 8 steps on the card and on the CPU
+# (DeepSeek-V2 1 dense + 1 MoE layer, Phi-3.5-MoE 2, Whisper-medium 2 + 2
+# over its 1,500 frames); (b) MLA's absorbed decode against its expanded
+# read on (a)'s DeepSeek-V2; (c) DeepSeek-V2 at 4 of its 60 layers in
+# float32, mla_absorb=False, capacity_factor raised to E = 160 so that
+# no token drops in either run, B 1: forward over 1,040 tokens against a
+# 1,024-token prefill and 16 steps (at 1.25 the forward's groups of 520
+# tokens and the decode's groups of one drop different tokens); (d) the
+# launcher in fresh processes (Whisper-medium at its published config,
+# the two MoE configs with --smoke: on one card they do not fit at
+# full depth); (e) bf16 timed runs: (arch, depth or None for all,
+# (batch, prompt, generated) runs)
+LM27 = dict(a=(("deepseek_v2_236b", {"n_layers": 2}),
+               ("phi3_5_moe_42b", {"n_layers": 2}),
+               ("whisper_medium", {"n_layers": 2, "enc_layers": 2})),
+            a_batch=2, a_prompt=64, a_steps=8,
+            c_layers=4, c_prompt=1024, c_steps=16,
+            cli=(("whisper-medium",), ("deepseek-v2-236b", "--smoke"),
+                 ("phi3.5-moe-42b-a6.6b", "--smoke")),
+            e=(("deepseek_v2_236b", 4, ((1, 1024, 32), (4, 48, 32))),
+               ("phi3_5_moe_42b", 8, ((4, 48, 32),)),
+               ("whisper_medium", None, ((4, 48, 32),))))
+# (b) float32 logits, |got - want| <= tol + tol·|want|: the absorbed
+# decode is the expanded read's products in another association
+LM_MLA_TOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -2713,15 +2761,15 @@ def run_audit(card: str) -> dict:
     return {"seconds": wall, "findings": len(report.findings)}
 
 
-def lm_teacher_forced(model, cfg, tokens, n_pre: int):
+def lm_teacher_forced(model, cfg, tokens, n_pre: int, frames=None):
     """Float32 logits at positions ``n_pre − 1 ..`` of ``tokens``: a
-    prefill of the first ``n_pre`` tokens, then one ``decode_step`` a
-    token."""
+    prefill of the first ``n_pre`` tokens (and the audio encoder over
+    ``frames``), then one ``decode_step`` a token."""
     import torch
     from repro_torch.models import transformer as T
     B, S = tokens.shape
     cache = T.init_cache(cfg, B, S + 1, tokens.device)
-    logits, cache = T.prefill(model, tokens[:, :n_pre], cfg, cache)
+    logits, cache = T.prefill(model, tokens[:, :n_pre], cfg, cache, frames)
     out = [logits]
     for i in range(n_pre, S):
         logits, cache = T.decode_step(model, tokens[:, i:i + 1], cfg, cache,
@@ -2767,7 +2815,7 @@ def dense_masked_attention(q, k, v, window: int, sink: int):
     return out, out_abs
 
 
-def lm_step_times(model, cfg, prompts, gen: int):
+def lm_step_times(model, cfg, prompts, gen: int, frames=None):
     """``launch.lm_serve.generate`` with a CUDA event at each of its
     marks; returns the prefill ms, the decode steps' ms (step and argmax),
     the host seconds of the decode loop and the last logits."""
@@ -2779,7 +2827,7 @@ def lm_step_times(model, cfg, prompts, gen: int):
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
     _, logits, _, host = lm_serve.generate(model, cfg, prompts, gen,
-                                           on_step=mark)
+                                           on_step=mark, frames=frames)
     ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     return ms[0], ms[1:], host, logits
 
@@ -2799,13 +2847,16 @@ def lm_frames(event) -> list:
 def lm_group(stack) -> str:
     """The layer of the LM path that launched a kernel, from the Python
     frames of the op that launched it: the ``linear`` products (matmul),
-    ``models/attention.py`` outside them (attention), ``models/ssm.py``
-    outside them (ssd/conv: the conv, the SSD or recurrence, the gated
-    norm), the rest of ``models/`` (elementwise: norms, RoPE, embedding,
-    SwiGLU, residual adds), else other."""
+    ``models/moe.py`` outside them (moe: routing, the experts' products
+    and SwiGLU, the combine), ``models/attention.py`` outside them
+    (attention), ``models/ssm.py`` outside them (ssd/conv: the conv, the
+    SSD or recurrence, the gated norm), the rest of ``models/``
+    (elementwise: norms, RoPE, embedding, SwiGLU, residual adds), else
+    other."""
     frames = [f for f in stack or () if "repro_torch/models/" in f]
     for group, test in (("matmul", lambda f: "layers.py" in f
                          and f.endswith(": linear")),
+                        ("moe", lambda f: "moe.py" in f),
                         ("attention", lambda f: "attention.py" in f),
                         ("ssd/conv", lambda f: "ssm.py" in f),
                         ("elementwise", lambda f: True)):
@@ -2814,15 +2865,17 @@ def lm_group(stack) -> str:
     return "other"
 
 
-def lm_decode_split(model, cfg, prompts, card: str, what: str) -> dict:
-    """One decode step after a prefill of ``prompts`` under
-    ``torch.profiler``: device time by kernel, grouped by ``lm_group``."""
+def lm_decode_split(model, cfg, prompts, card: str, what: str,
+                    frames=None) -> dict:
+    """One decode step after a prefill of ``prompts`` (and ``frames``)
+    under ``torch.profiler``: device time by kernel, grouped by
+    ``lm_group``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     B, P = prompts.shape
     cache = T.init_cache(cfg, B, P + 2, prompts.device)
-    logits, cache = T.prefill(model, prompts, cfg, cache)
+    logits, cache = T.prefill(model, prompts, cfg, cache, frames)
     tok = torch.argmax(logits, dim=-1)[:, None]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     # torch 2.11 records an op's Python stack only in verbose mode
@@ -2846,31 +2899,100 @@ def lm_decode_split(model, cfg, prompts, card: str, what: str) -> dict:
             n += 1
     total = sum(groups.values())
     if not total:
-        print(f"[lm] {what}: decode-step split not measured (the profiler "
+        print(f"{what}: decode-step split not measured (the profiler "
               f"recorded no device time; step wall {wall_us!r} us under the "
               f"profiler)")
         return {}
-    print(f"[lm] {what}: one decode step under torch.profiler, {n} kernels, "
+    print(f"{what}: one decode step under torch.profiler, {n} kernels, "
           f"device time {total!r} us of {wall_us!r} us wall (busy "
           f"{total / wall_us!r}): " + ", ".join(
               f"{g} {t!r} us ({t / total:.4f})" for g, t in
               sorted(groups.items(), key=lambda x: -x[1])) + f" on {card}")
     top = sorted(kernels.items(), key=lambda x: -x[1])[:10]
     for (g, name), t in top:
-        print(f"[lm] {what}: top-10 {t!r} us [{g}] {name[:110]} on {card}")
+        print(f"{what}: top-10 {t!r} us [{g}] {name[:110]} on {card}")
     return {"kernels": n, "device_us": total, "wall_us": wall_us, **groups}
+
+
+def lm_cli(args, cfg, card: str, tag: str) -> float:
+    """``python -m repro_torch.launch.lm_serve`` with ``args`` on the card
+    in a fresh process: exit 0 and the launcher's five lines for ``cfg``
+    (the config it runs); the wall seconds."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.lm_serve", "--arch",
+           *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run_out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    lines = run_out.stdout.strip().splitlines()
+    check(run_out.returncode == 0 and len(lines) == 5,
+          f"{' '.join(cmd[1:])} exited {run_out.returncode}:\n"
+          f"{run_out.stdout[-2000:]}\n{run_out.stderr[-2000:]}")
+    check(lines[0] == f"arch={cfg.name} pattern={cfg.attn_pattern}"
+          and re.fullmatch(r"prefill: \d+x\d+ tokens in .*", lines[1])
+          and re.fullmatch(r"decode:  \d+x\d+ tokens in .*", lines[2])
+          and lines[3].startswith("sample token ids: [")
+          and lines[4] == "device=cuda last logits finite=True",
+          f"the launcher printed:\n{run_out.stdout}")
+    for line in lines:
+        print(f"{tag} {line}" + (f" on {card}" if " in " in line else ""))
+    print(f"{tag} {' '.join(cmd[1:])}: exit 0, wall {wall!r} s (the "
+          f"interpreter, the init and the casts included) on {card}")
+    return wall
+
+
+def lm_timed_runs(model, cfg, runs, card: str, what: str,
+                  on_prefill=None) -> dict:
+    """Phase 26 (e)'s timing of ``generate`` for each (B, P, gen) of
+    ``runs`` after a warm-up: prefill ms, median decode ms a token,
+    tok/s, ``max_memory_allocated`` and a profiled decode step.
+    ``on_prefill(B, P)``, if given, is called just before each timed
+    run and its return value just after it (for the routing log)."""
+    import torch
+    from repro_torch.launch import lm_serve
+    numbers: dict = {}
+    for B, P, gen in runs:
+        prompts = lm_serve.make_prompts(cfg, B, P, 0, "cuda")
+        frames = lm_serve.make_frames(cfg, B, P, 0, "cuda")
+        lm_step_times(model, cfg, prompts, 2, frames)      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        after = on_prefill(B, P) if on_prefill else None
+        pre_ms, step_ms, host, logits = lm_step_times(model, cfg, prompts,
+                                                      gen, frames)
+        if after:
+            after()
+        check(bool(torch.isfinite(logits).all()), f"{what}: non-finite "
+              f"logits")
+        med = statistics.median(step_ms)
+        mem = torch.cuda.max_memory_allocated()
+        tag = f"B{B}_P{P}"
+        numbers.update({f"e_{tag}_prefill_ms": pre_ms,
+                        f"e_{tag}_decode_ms": med,
+                        f"e_{tag}_decode_tok_s": B * 1e3 / med,
+                        f"e_{tag}_max_memory_bytes": mem})
+        print(f"{what}, B {B}, prompt {P}, {gen} generated: prefill "
+              f"{pre_ms!r} ms ({B * P * 1e3 / pre_ms!r} tok/s); decode "
+              f"{med!r} ms a token (median of {gen - 1} steps, min "
+              f"{min(step_ms)!r}, max {max(step_ms)!r}; {B * 1e3 / med!r} "
+              f"tok/s; the loop {host!r} s on the host clock); "
+              f"max_memory_allocated {mem} on {card}")
+        numbers.update({f"e_{tag}_split_{k}": val for k, val in
+                        lm_decode_split(model, cfg, prompts, card,
+                                        f"{what}, B {B} P {P}",
+                                        frames).items()})
+    return numbers
 
 
 def run_lm(card: str) -> dict:
     """Phase 26: the LM serving path of Zamba2-2.7B (``LM_PHASE``),
     (a)-(e)."""
     import dataclasses
-    import os
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.sparse_attn import BF16_TOL
-    from repro_torch.launch import lm_serve
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
 
@@ -2958,59 +3080,188 @@ def run_lm(card: str) -> dict:
     del fwd, dec
 
     # -- (d) the launcher in a fresh process ---------------------------------
-    cmd = [sys.executable, "-m", "repro_torch.launch.lm_serve", "--arch",
-           spec["arch"], *spec["cli"]]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    run_out = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600, env=env, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    lines = run_out.stdout.strip().splitlines()
-    check(run_out.returncode == 0 and len(lines) == 5,
-          f"{' '.join(cmd[1:])} exited {run_out.returncode}:\n"
-          f"{run_out.stdout[-2000:]}\n{run_out.stderr[-2000:]}")
-    check(lines[0] == f"arch={base.name} pattern={base.attn_pattern}"
-          and re.fullmatch(r"prefill: \d+x\d+ tokens in .*", lines[1])
-          and re.fullmatch(r"decode:  \d+x\d+ tokens in .*", lines[2])
-          and lines[3].startswith("sample token ids: [")
-          and lines[4] == f"device={dev} last logits finite=True",
-          f"the launcher printed:\n{run_out.stdout}")
-    for line in lines:
-        print(f"[lm] (d) {line}" + (f" on {card}" if " in " in line
-                                    else ""))
-    print(f"[lm] (d) {' '.join(cmd[1:])}: exit 0, wall {wall!r} s (the "
-          f"interpreter, the init and the casts included) on {card}")
-    numbers["d_wall_s"] = wall
+    numbers["d_wall_s"] = lm_cli((spec["arch"], *spec["cli"]), base, card,
+                                 "[lm] (d)")
 
     # -- (e) bf16, full depth, timed: the weights stored in bf16 once -------
     cfg = dataclasses.replace(f32, dtype="bfloat16")
     T.to_compute(model, cfg)
-    for B, P, gen in spec["e_runs"]:
-        prompts = lm_serve.make_prompts(cfg, B, P, 0, dev)
-        lm_step_times(model, cfg, prompts, 2)              # warm-up
-        torch.cuda.reset_peak_memory_stats()
-        pre_ms, step_ms, host, logits = lm_step_times(model, cfg, prompts,
-                                                      gen)
-        check(bool(torch.isfinite(logits).all()), "(e) non-finite logits")
-        med = statistics.median(step_ms)
-        mem = torch.cuda.max_memory_allocated()
-        tag = f"B{B}_P{P}"
-        numbers.update({f"e_{tag}_prefill_ms": pre_ms,
-                        f"e_{tag}_decode_ms": med,
-                        f"e_{tag}_decode_tok_s": B * 1e3 / med,
-                        f"e_{tag}_max_memory_bytes": mem})
-        print(f"[lm] (e) {cfg.name} bf16, all {cfg.n_layers} layers, B {B}, "
-              f"prompt {P}, {gen} generated: prefill {pre_ms!r} ms "
-              f"({B * P * 1e3 / pre_ms!r} tok/s); decode {med!r} ms a token "
-              f"(median of {gen - 1} steps, min {min(step_ms)!r}, max "
-              f"{max(step_ms)!r}; {B * 1e3 / med!r} tok/s; the loop "
-              f"{host!r} s on the host clock); max_memory_allocated {mem} "
-              f"on {card}")
-        numbers.update({f"e_{tag}_split_{k}": val for k, val in
-                        lm_decode_split(model, cfg, prompts, card,
-                                        f"(e) B {B} P {P}").items()})
+    numbers.update(lm_timed_runs(model, cfg, spec["e_runs"], card,
+                                 f"[lm] (e) {cfg.name} bf16, all "
+                                 f"{cfg.n_layers} layers"))
     del model
     torch.cuda.empty_cache()
+    return numbers
+
+
+def route_logs(model, on: bool = True) -> list:
+    """Switch the routing log of every MoE layer of ``model`` on (a fresh
+    list each) or off; the logs, layer by layer."""
+    logs = []
+    for lp in getattr(model, "moe_layers", ()):
+        lp.moe.route_log = [] if on else None
+        logs.append(lp.moe.route_log)
+    return logs
+
+
+def expert_set_diff(card_logs, cpu_logs, what: str) -> int:
+    """Print each token whose set of experts differs between two runs'
+    routing logs (a float32 near-tie); their number."""
+    n = 0
+    for layer, (a_log, b_log) in enumerate(zip(card_logs, cpu_logs)):
+        check(len(a_log) == len(b_log), f"{what}: MoE calls differ")
+        for call, (a, b) in enumerate(zip(a_log, b_log)):
+            ia = a["idx"].cpu().sort(dim=-1).values
+            ib = b["idx"].cpu().sort(dim=-1).values
+            for g, t in (ia != ib).any(dim=-1).nonzero().tolist():
+                print(f"[lm27] {what}: MoE layer {layer}, call {call} (0 "
+                      f"the prefill), group {g} token {t}: experts "
+                      f"{ia[g, t].tolist()} on the card, {ib[g, t].tolist()} "
+                      f"on the CPU")
+                n += 1
+    return n
+
+
+def run_lm27(card: str) -> dict:
+    """Phase 27: the LM serving path of the MoE, MLA and audio families
+    at their published widths (``LM27``), (a)-(e)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, dev = LM27, "cuda"
+    rng = np.random.default_rng(27)
+    numbers: dict = {}
+    B, n_pre = spec["a_batch"], spec["a_prompt"]
+
+    def count(model) -> int:
+        return sum(t.numel() for t in model.parameters())
+
+    # -- (a) the card against the CPU, reduced depth, float32; (b) MLA ------
+    for arch, cut in spec["a"]:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        cpu = T.LM(cfg, None, "cpu")
+        cpu.load_state_dict(model.state_dict())
+        tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, n_pre + spec["a_steps"])))
+        frames = None
+        if cfg.family == "audio":
+            frames = torch.from_numpy((0.1 * rng.standard_normal(
+                (B, cfg.enc_frames, cfg.d_model))).astype(np.float32))
+        logs = [route_logs(m) for m in (model, cpu)]
+        got = lm_teacher_forced(model, cfg, tok.to(dev), n_pre,
+                                None if frames is None else frames.to(dev))
+        want = lm_teacher_forced(cpu, cfg, tok, n_pre, frames)
+        moved = expert_set_diff(*logs, f"(a) {cfg.name}")
+        route_logs(model, False)
+        del cpu
+        err = check_logits(got, want, LM_A_TOL,
+                           f"(a) {cfg.name} card against CPU")
+        depth = (f"{cfg.n_layers} layers" if cfg.family != "audio" else
+                 f"{cfg.enc_layers} + {cfg.n_layers} layers over "
+                 f"{cfg.enc_frames} frames")
+        print(f"[lm27] (a) {cfg.name} at {depth}, {count(model)} "
+              f"parameters, float32, B {B}, prefill {n_pre} + "
+              f"{spec['a_steps']} steps: logits {tuple(got.shape)} on the "
+              f"card against the CPU, max abs err {err!r} (held to "
+              f"{LM_A_TOL} + {LM_A_TOL}·|want|); tokens whose experts differ "
+              f"between the devices: {moved}")
+        numbers[f"a_{arch}_max_abs_err"] = err
+        if cfg.mla:
+            expanded = dataclasses.replace(cfg, mla_absorb=False)
+            exp = lm_teacher_forced(model, expanded, tok.to(dev), n_pre)
+            err_b = check_logits(got, exp, LM_MLA_TOL, "(b) MLA absorbed "
+                                 "against expanded")
+            print(f"[lm27] (b) {cfg.name} at {cfg.n_layers} layers, float32, "
+                  f"B {B}, prefill {n_pre} + {spec['a_steps']} steps: the "
+                  f"absorbed decode (kv_lora {cfg.kv_lora}, rope "
+                  f"{cfg.rope_head_dim}, {cfg.n_heads} heads) against the "
+                  f"expanded read, max abs err {err_b!r} (held to "
+                  f"{LM_MLA_TOL} + {LM_MLA_TOL}·|want|)")
+            numbers["b_max_abs_err"] = err_b
+        del model, got, want
+        torch.cuda.empty_cache()
+
+    # -- (c) DeepSeek-V2 at 4 layers, float32: the cache path against the
+    # forward, no token dropped
+    base = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(base, dtype="float32",
+                              n_layers=spec["c_layers"], mla_absorb=False,
+                              capacity_factor=float(base.n_experts))
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    steps = spec["c_steps"]
+    n_c = spec["c_prompt"]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_c + steps))
+                           ).to(dev)
+    logs = route_logs(model)
+    with torch.no_grad():
+        fwd = T.forward(model, tok, cfg)[0][:, n_c - 1:]
+    dec = lm_teacher_forced(model, cfg, tok, n_c)
+    dropped = sum(int((~e["keep"]).sum()) for log in logs for e in log)
+    route_logs(model, False)
+    check(dropped == 0, f"(c) {dropped} assignments dropped at capacity "
+          f"factor {cfg.capacity_factor}")
+    err = check_logits(dec, fwd, LM_C_TOL, "(c) prefill + decode against "
+                       "forward")
+    gt = M.group_size(n_c + steps, 1024)
+    print(f"[lm27] (c) {cfg.name} at {cfg.n_layers} layers (1 dense + "
+          f"{cfg.n_layers - 1} MoE), {count(model)} parameters, float32, "
+          f"mla_absorb=False, capacity_factor {cfg.capacity_factor} (no "
+          f"assignment dropped), B 1: forward over {n_c + steps} tokens "
+          f"(groups of {gt}) against a {n_c}-token prefill and {steps} "
+          f"decode steps (groups of 1), {steps + 1} positions, max abs err "
+          f"{err!r} (held to {LM_C_TOL} + {LM_C_TOL}·|want|; max |logit| "
+          f"{float(fwd.abs().max())!r})")
+    numbers["c_max_abs_err"] = err
+    del fwd, dec
+
+    # -- (d) the launcher in fresh processes ---------------------------------
+    for args in spec["cli"]:
+        cli_cfg = (get_smoke_config if "--smoke" in args else
+                   get_config)(args[0])
+        numbers[f"d_{args[0]}_wall_s"] = lm_cli(args, cli_cfg, card,
+                                                "[lm27] (d)")
+
+    # -- (e) bf16, timed; DeepSeek-V2 from (c) stored in bf16 ----------------
+    for arch, depth, runs in spec["e"]:
+        cut = {} if depth is None else {"n_layers": depth}
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        if arch != "deepseek_v2_236b":
+            model = T.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                  dev)
+        T.to_compute(model, cfg)
+        torch.cuda.empty_cache()
+        what = (f"[lm27] (e) {cfg.name} bf16, {cfg.n_layers} of "
+                f"{get_config(arch).n_layers} layers, {count(model)} "
+                f"parameters")
+
+        def drops(Bp, P, model=model, cfg=cfg):
+            logs = route_logs(model)
+
+            def after():
+                for layer, log in enumerate(logs):
+                    keep = log[0]["keep"]               # the prefill
+                    n = int((~keep).sum())
+                    print(f"[lm27] (e) {cfg.name} B {Bp} P {P}: MoE layer "
+                          f"{layer} dropped {n} of {keep.numel()} (token, "
+                          f"slot) assignments in the prefill (share "
+                          f"{n / keep.numel()!r}; groups of "
+                          f"{keep.shape[1]} tokens, capacity factor "
+                          f"{cfg.capacity_factor})")
+                    numbers[f"e_{arch}_B{Bp}_P{P}_drop_share_{layer}"] = (
+                        n / keep.numel())
+                route_logs(model, False)
+            return after
+        numbers.update({f"{arch}_{k}": v for k, v in lm_timed_runs(
+            model, cfg, runs, card, what,
+            drops if arch == "deepseek_v2_236b" else None).items()})
+        del model
+        torch.cuda.empty_cache()
     return numbers
 
 
@@ -3048,6 +3299,7 @@ def main() -> int:
     out7 = run_slice7("cuda", FIG9, 541_222, DYN, expect)
     run_audit(card)
     run_lm(card)
+    run_lm27(card)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
                          **out5["launches"], **out6["launches"],

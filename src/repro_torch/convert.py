@@ -71,8 +71,12 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda"):
     ``tree`` is the JAX package's ``init_params`` tree with numpy leaves.
     Each port parameter is found by name: its dotted name's words walk
     the tree and its integer parts index the stacked leading axes (the L
-    axis of ``layers``, the (groups, per) axes of ``mamba_groups``).
-    Every leaf of the tree must land in exactly one parameter.
+    axis of ``layers``, ``dense_layers``, ``moe_layers``, ``enc_layers``
+    and ``dec_layers``, the (groups, per) axes of ``mamba_groups``);
+    what is left is the leaf itself, so an (L, E, d, f) expert stack
+    gives each layer its (E, d, f) tensor and the top-level ``enc_pos``
+    is taken whole.  Every leaf of the tree must land in exactly one
+    parameter.
     """
     from .models.transformer import LM
     model = LM(cfg, generator=None, device=resolve_device(device))
@@ -109,8 +113,10 @@ def lm_cache_to_numpy(cfg: ModelConfig, cache: dict) -> dict:
     """The port's decode cache in the reference's layout: per-layer lists
     stacked along leading axes, host float32 arrays (bfloat16 widens
     exactly)."""
-    want = ({"mamba_groups", "attn"} if cfg.family == "hybrid"
-            else {"layers"})
+    want = {"hybrid": {"mamba_groups", "attn"},
+            "moe": {"moe_layers"} | ({"dense_layers"}
+                                     if cfg.first_dense_layers else set()),
+            "audio": {"dec_layers", "enc_out"}}.get(cfg.family, {"layers"})
     if set(cache) != want:
         raise ValueError(f"a {cfg.family} cache has keys {sorted(want)}, "
                          f"got {sorted(cache)}")

@@ -8,9 +8,14 @@ finite=...``, so a caller in another process can check the logits.
 Parameters come from ``torch.Generator(device).manual_seed(seed)``,
 stored in the compute dtype once (``transformer.to_compute``); the
 prompts are the reference's (``np.random.default_rng(seed)``), so both
-launchers decode the same token ids.  For ``attn_pattern=ddm_window`` archs the shared
-attention reads the DDM window and sink through the token mask.  The
-audio family (and MoE, MLA) is not ported yet: ROADMAP Queue 1 item 13.
+launchers decode the same token ids, and for the audio family the
+reference's frame embeddings, drawn after the prompts from the same
+generator and rounded to bf16.  For ``attn_pattern=ddm_window`` archs
+the shared attention reads the DDM window and sink through the token
+mask.  All ten configs are served.  At the published widths on one
+80 GB card, DeepSeek-V2-236B (about 472 GB in bf16) and Phi-3.5-MoE (84
+GB) do not fit, as on one chip for the reference launcher, which has no
+depth flag either: run them with ``--smoke``.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.lm_serve --arch \\
@@ -37,14 +42,32 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int,
                             ).to(device)
 
 
+def make_frames(cfg, batch: int, prompt_len: int, seed: int, device):
+    """The reference launcher's audio frames, (batch, enc_frames, d_model)
+    bf16, drawn after the prompts from the same generator; None for the
+    other families."""
+    if cfg.family != "audio":
+        return None
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab, (batch, prompt_len))        # the prompts
+    frames = 0.1 * rng.normal(size=(batch, cfg.enc_frames, cfg.d_model))
+    # float64 → bf16 through float32, as the reference's conversion
+    return torch.from_numpy(frames.astype(np.float32)).to(
+        torch.bfloat16).to(device)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 @torch.no_grad()
-def generate(params, cfg, prompts: torch.Tensor, gen: int, on_step=None):
+def generate(params, cfg, prompts: torch.Tensor, gen: int, on_step=None,
+             frames=None):
     """Greedy decoding: prefill, then ``gen − 1`` decode steps.
+
+    ``frames``: the audio family's frame embeddings, read by the prefill
+    (the decode steps read the encoder output in the cache).
 
     Returns (tokens (B, gen), last logits (B, vocab) float32, prefill
     seconds, decode seconds); the cache holds ``P + gen + 1`` positions,
@@ -59,7 +82,7 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, on_step=None):
     cache = T.init_cache(cfg, B, P + gen + 1, dev)
     mark()
     t0 = time.perf_counter()
-    logits, cache = T.prefill(params, prompts, cfg, cache)
+    logits, cache = T.prefill(params, prompts, cfg, cache, frames)
     tok = torch.argmax(logits, dim=-1)[:, None]
     mark()
     _sync(dev)
@@ -95,7 +118,9 @@ def main(argv=None):
         cfg, torch.Generator(dev).manual_seed(args.seed), dev), cfg)
     B = args.batch
     prompts = make_prompts(cfg, B, args.prompt_len, args.seed, dev)
-    gen, logits, t_pre, t_dec = generate(params, cfg, prompts, args.gen)
+    frames = make_frames(cfg, B, args.prompt_len, args.seed, dev)
+    gen, logits, t_pre, t_dec = generate(params, cfg, prompts, args.gen,
+                                         frames=frames)
 
     gen = gen.cpu().numpy()
     print(f"arch={cfg.name} pattern={cfg.attn_pattern}")

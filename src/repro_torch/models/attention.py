@@ -1,11 +1,11 @@
-"""Attention blocks: GQA (with qk-norm / QKV-bias variants).
+"""Attention blocks: GQA (with qk-norm / QKV-bias variants) and MLA.
 
 The port of the JAX package's ``models/attention.py``: ``chunked_sdpa``,
-the cache write, and GQA init, cache and apply, with both decode reads
-of a ``ddm_window`` config (the masked full-context read and the
-``window_gather_decode`` gather of the window and the sink).  MLA
-(DeepSeek-V2) is not ported yet: ``attn_init``/``attn_apply`` raise
-``NotImplementedError`` for it (ROADMAP Queue 1 item 13).
+the cache write, GQA init, cache and apply, with both decode reads of a
+``ddm_window`` config (the masked full-context read and the
+``window_gather_decode`` gather of the window and the sink), and MLA
+(DeepSeek-V2: a latent KV cache, a decoupled RoPE key, and the absorbed
+single-token decode).
 
 Scores are float32 products of the compute-dtype inputs (the
 reference's ``preferred_element_type=float32``): the inputs are upcast
@@ -15,8 +15,9 @@ default) or float32 scores lose 13 bits.  The query axis is processed in
 chunks of ``q_chunk`` rows, so the live score block is (B, H, G,
 q_chunk, Skv) float32.
 
-KV caches are dicts of preallocated (B, max_len, n_kv, dh) tensors that
-the cache write fills in place.
+KV caches are dicts of preallocated tensors that the cache write fills
+in place: (B, max_len, n_kv, dh) ``k``/``v`` for GQA, (B, max_len,
+kv_lora) ``ckv`` and (B, max_len, rope_head_dim) ``krope`` for MLA.
 """
 from __future__ import annotations
 
@@ -24,10 +25,8 @@ import torch
 from torch import nn
 
 from .config import ModelConfig
-from .layers import apply_rope, linear, linear_init, rms_headnorm, \
-    rope_angles
-
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 13)"
+from .layers import Params, apply_rope, linear, linear_init, \
+    rms_headnorm, rmsnorm, rmsnorm_init, rope_angles
 
 
 # ---------------------------------------------------------------------------
@@ -188,25 +187,137 @@ def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV, decoupled RoPE key
+# ---------------------------------------------------------------------------
+
+class MLA(Params):
+    """``w_dkv``, ``w_ukv``, ``wo``, ``kv_norm``, and ``w_dq``/``q_norm``/
+    ``w_uq`` with a query LoRA, else ``wq``.
+
+    The absorbed decode reads ``w_ukv``'s key half in float32 (its value
+    half and the expanded read in the model dtype), so ``w_ukv`` keeps its
+    float32 master under ``transformer.to_compute``."""
+
+    def __init__(self, w_dkv, w_ukv, wo, kv_norm, w_dq=None, q_norm=None,
+                 w_uq=None, wq=None):
+        super().__init__()
+        w_ukv.compute = ()
+        self.w_dkv, self.w_ukv, self.wo, self.kv_norm = (w_dkv, w_ukv, wo,
+                                                         kv_norm)
+        self.w_dq, self.q_norm, self.w_uq, self.wq = w_dq, q_norm, w_uq, wq
+
+
+def mla_init(cfg: ModelConfig, *, generator=None, device="cuda") -> MLA:
+    d, nh = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    kw = dict(generator=generator, device=device)
+    parts = dict(
+        w_dkv=linear_init(d, cfg.kv_lora + dr, **kw),
+        w_ukv=linear_init(cfg.kv_lora, nh * (dn + dv), **kw),
+        wo=linear_init(nh * dv, d, std=(nh * dv) ** -0.5
+                       / max(2 * cfg.n_layers, 1) ** 0.5, **kw),
+        kv_norm=rmsnorm_init(cfg.kv_lora, device))
+    if cfg.q_lora:
+        parts.update(w_dq=linear_init(d, cfg.q_lora, **kw),
+                     q_norm=rmsnorm_init(cfg.q_lora, device),
+                     w_uq=linear_init(cfg.q_lora, nh * (dn + dr), **kw))
+    else:
+        parts["wq"] = linear_init(d, nh * (dn + dr), **kw)
+    return MLA(**parts)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device="cuda") -> dict:
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions,
+              cache: dict | None = None, cur_len: int = 0,
+              causal: bool = True, window: int = 0, sink: int = 0):
+    """One MLA sublayer.  Returns (y, cache)."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    nh = cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+
+    # latent KV path; k_rope is rotated as a single head
+    dkv = linear(p.w_dkv, x, dt)
+    ckv, k_rope = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
+    ckv = rmsnorm(p.kv_norm, ckv, cfg.norm_eps)
+    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is not None:
+        cache = _cache_write(cache, {"ckv": ckv, "krope": k_rope}, cur_len)
+        ckv_all, krope_all = cache["ckv"], cache["krope"]
+        valid = cur_len + S
+    else:
+        ckv_all, krope_all = ckv, k_rope
+        valid = S
+
+    # queries
+    if cfg.q_lora:
+        cq = rmsnorm(p.q_norm, linear(p.w_dq, x, dt), cfg.norm_eps)
+        q = linear(p.w_uq, cq, dt).reshape(B, S, nh, dn + dr)
+    else:
+        q = linear(p.wq, x, dt).reshape(B, S, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    if cache is not None and S == 1 and cfg.mla_absorb:
+        # absorbed decode (DeepSeek-V2 §2.1.4): W_uk folded into the
+        # query and W_uv into the output, so attention reads the latent
+        # cache directly; scores and softmax in float32, as the reference
+        w_ukv = p.w_ukv.w.reshape(cfg.kv_lora, nh, dn + dv)
+        w_uk = w_ukv[..., :dn].float()
+        w_uv = w_ukv[..., dn:].to(dt)
+        ckv_f = ckv_all.float()
+        q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk)
+        s_nope = torch.einsum("bqhl,bkl->bhqk", q_abs, ckv_f)
+        s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                              krope_all.float())
+        scores = (s_nope + s_rope) * ((dn + dr) ** -0.5)
+        kv_pos = torch.arange(ckv_all.shape[1], device=x.device)
+        ok = (kv_pos[None, :] < valid) & (kv_pos[None, :]
+                                          <= positions[:, None])
+        if window > 0:
+            ok = ok & ((kv_pos[None, :] > positions[:, None] - window)
+                       | (kv_pos[None, :] < sink))
+        pr = torch.softmax(scores.masked_fill(~ok, float("-inf")), dim=-1)
+        ctx = torch.einsum("bhqk,bkl->bqhl", pr, ckv_f).to(dt)
+        out = torch.einsum("bqhl,lhd->bqhd", ctx, w_uv)
+        return linear(p.wo, out.reshape(B, S, nh * dv), dt), cache
+
+    # expand the latents to per-head K/V (prefill, or mla_absorb=False)
+    Skv = ckv_all.shape[1]
+    ukv = linear(p.w_ukv, ckv_all, dt).reshape(B, Skv, nh, dn + dv)
+    k_nope, vv = ukv[..., :dn], ukv[..., dn:]
+    kk = torch.cat([k_nope, krope_all[:, :, None, :].expand(B, Skv, nh, dr)],
+                   dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, nh, 1, dn + dr)
+    out = chunked_sdpa(qq, kk, vv, positions, valid, causal=causal,
+                       window=window, sink=sink, q_chunk=cfg.q_chunk,
+                       scale=(dn + dr) ** -0.5)
+    return linear(p.wo, out.reshape(B, S, nh * dv), dt), cache
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(f"MLA attention ({cfg.name}) {NOT_PORTED}")
-
-
-def attn_init(cfg: ModelConfig, *, generator=None, device="cuda") -> GQA:
-    _no_mla(cfg)
-    return gqa_init(cfg, generator=generator, device=device)
+def attn_init(cfg: ModelConfig, *, generator=None, device="cuda"):
+    init = mla_init if cfg.mla else gqa_init
+    return init(cfg, generator=generator, device=device)
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device="cuda") -> dict:
-    _no_mla(cfg)
-    return gqa_cache_init(cfg, batch, max_len, dtype, device)
+    init = mla_cache_init if cfg.mla else gqa_cache_init
+    return init(cfg, batch, max_len, dtype, device)
 
 
 def attn_apply(p, x, cfg: ModelConfig, **kw):
-    _no_mla(cfg)
-    return gqa_apply(p, x, cfg, **kw)
+    return (mla_apply if cfg.mla else gqa_apply)(p, x, cfg, **kw)

@@ -5,52 +5,49 @@ axis and runs it with ``lax.scan``; here the layers are an
 ``nn.ModuleList`` run by a Python loop.  Families:
 
   dense / vlm   : [L × (attn + mlp)]
+  moe           : [first_dense × (attn + mlp)] + [rest × (attn + moe)]
   ssm           : [L × mamba2]
   hybrid        : [(L/k groups) × (k × mamba2)] + one *shared* attn+mlp
                   block applied after every group (Zamba2-style weight
                   sharing), each application with its own KV cache
+  audio         : encoder [Lenc × (attn + mlp, non-causal)] +
+                  decoder [L × (self-attn + cross-attn + mlp)], the conv
+                  frontend stubbed (precomputed frame embeddings)
 
-``moe`` and ``audio`` (and MLA attention) raise ``NotImplementedError``:
-they are not ported yet (ROADMAP Queue 1 item 13), nor is ``loss_fn``,
-which waits for the training slice.
+``loss_fn`` is not ported: it waits for the training slice (ROADMAP
+Queue 1 item 13).
 
 Entry points (used by ``launch/lm_serve`` and the tests):
   init_params(cfg, generator, device)   — the model, fp32 masters
   to_compute(params, cfg)               — its serving copy, in place
-  forward(params, tokens, cfg, ...)     — logits (f32) + caches
+  forward(params, tokens, cfg, ...)     — logits (f32) + caches + aux
   init_cache(cfg, batch, max_len, device)
-  prefill(params, tokens, cfg, cache)   — last logits + filled cache
+  prefill(params, tokens, cfg, cache, frames) — last logits + cache
   decode_step(params, tokens, cfg, cache, cur_len) — one token
 
 Caches are dicts of per-layer dicts whose tensors ``forward`` updates in
-place (KV rows) or replaces (the Mamba states); ``prefill`` and
-``decode_step`` return the same dict.  ``cur_len`` is a host int.
+place (KV rows) or replaces (the Mamba states, the audio encoder's
+output ``enc_out``); ``prefill`` and ``decode_step`` return the same
+dict.  ``cur_len`` is a host int.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .attention import NOT_PORTED, attn_apply, attn_cache_init, attn_init
+from .attention import attn_apply, attn_cache_init, attn_init, chunked_sdpa
 from .config import ModelConfig
-from .layers import embed, embed_init, linear, linear_init, rmsnorm, \
-    rmsnorm_init
+from .layers import embed, embed_init, linear, linear_init, master, \
+    rmsnorm, rmsnorm_init, truncated_normal
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply, moe_init
 from .ssm import mamba2_apply, mamba2_cache_init, mamba2_init
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in ("moe", "audio"):
-            raise NotImplementedError(
-                f"the {cfg.family} family ({cfg.name}) {NOT_PORTED}")
-        raise ValueError(cfg.family)
 
 
 def _sparse_kw(cfg: ModelConfig) -> dict:
@@ -84,6 +81,26 @@ def _dense_layer_apply(p: DenseLayer, x, cfg, *, positions, cache=None,
     return x, cache
 
 
+class MoELayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.ln1 = rmsnorm_init(cfg.d_model, device)
+        self.attn = attn_init(cfg, **kw)
+        self.ln2 = rmsnorm_init(cfg.d_model, device)
+        self.moe = moe_init(cfg, **kw)
+
+
+def _moe_layer_apply(p: MoELayer, x, cfg, *, positions, cache=None,
+                     cur_len=0, causal=True, **sparse):
+    a, cache = attn_apply(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
+                          positions=positions, cache=cache, cur_len=cur_len,
+                          causal=causal, **sparse)
+    x = x + a
+    y, aux = moe_apply(p.moe, rmsnorm(p.ln2, x, cfg.norm_eps), cfg)
+    return x + y, cache, aux
+
+
 class MambaLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -97,6 +114,63 @@ def _mamba_layer_apply(p: MambaLayer, x, cfg, *, cache=None):
     return x + y, cache
 
 
+class DecoderLayer(nn.Module):
+    """The audio decoder's layer: self-attention, cross-attention to the
+    encoder's output (``xattn``, built by ``attn_init`` as in the
+    reference), MLP."""
+
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.ln1 = rmsnorm_init(cfg.d_model, device)
+        self.attn = attn_init(cfg, **kw)
+        self.lnx = rmsnorm_init(cfg.d_model, device)
+        self.xattn = attn_init(cfg, **kw)
+        self.ln2 = rmsnorm_init(cfg.d_model, device)
+        self.mlp = mlp_init(cfg, **kw)
+
+
+def _decoder_layer_apply(p: DecoderLayer, x, enc, cfg, *, positions,
+                         cache=None, cur_len=0, **sparse):
+    a, cache = attn_apply(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
+                          positions=positions, cache=cache, cur_len=cur_len,
+                          **sparse)
+    x = x + a
+    x = x + _cross_attn(p.xattn, rmsnorm(p.lnx, x, cfg.norm_eps), enc, cfg)
+    x = x + mlp_apply(p.mlp, rmsnorm(p.ln2, x, cfg.norm_eps))
+    return x, cache
+
+
+def _cross_attn(p, xq, enc, cfg: ModelConfig):
+    """Cross attention: queries from the decoder, K/V from the encoder
+    output (recomputed every step: there is no cross KV cache), not
+    causal, no RoPE."""
+    B, S, _ = xq.shape
+    F = enc.shape[1]
+    dh = cfg.d_head
+    dt = xq.dtype
+    q = linear(p.wq, xq, dt).reshape(B, S, cfg.n_heads, dh)
+    k = linear(p.wk, enc, dt).reshape(B, F, cfg.n_kv_heads, dh)
+    v = linear(p.wv, enc, dt).reshape(B, F, cfg.n_kv_heads, dh)
+    g = cfg.n_heads // cfg.n_kv_heads
+    out = chunked_sdpa(q.reshape(B, S, cfg.n_kv_heads, g, dh), k, v,
+                       torch.arange(S, device=xq.device), F, causal=False,
+                       q_chunk=cfg.q_chunk)
+    return linear(p.wo, out.reshape(B, S, -1), dt)
+
+
+def _encode(params: LM, frames, cfg: ModelConfig, dt):
+    """The audio encoder over frame embeddings (B, F, d): non-causal dense
+    layers, then ``enc_norm``."""
+    F = frames.shape[1]
+    x = frames.to(dt) + params.enc_pos[:F].to(dt)
+    positions = torch.arange(F, device=x.device)
+    for lp in params.enc_layers:
+        x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
+                                  causal=False)
+    return rmsnorm(params.enc_norm, x, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -108,8 +182,10 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
         super().__init__()
-        _check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(cfg.family)
         self.cfg = cfg
+        self.compute: tuple[str, ...] = ()
         kw = dict(generator=generator, device=device)
         self.embed = embed_init(cfg.vocab, cfg.d_model, **kw)
         self.final_norm = rmsnorm_init(cfg.d_model, device)
@@ -117,18 +193,29 @@ class LM(nn.Module):
                         else linear_init(cfg.d_model, cfg.vocab, **kw))
         # the logits' projection reads its weights in float32
         (self.embed if cfg.tie_embeddings else self.lm_head).compute = ()
+
+        def stack(layer, n):
+            return nn.ModuleList(layer(cfg, **kw) for _ in range(n))
         if cfg.family in ("dense", "vlm"):
-            self.layers = nn.ModuleList(
-                DenseLayer(cfg, **kw) for _ in range(cfg.n_layers))
+            self.layers = stack(DenseLayer, cfg.n_layers)
+        elif cfg.family == "moe":
+            nd = cfg.first_dense_layers
+            self.dense_layers = stack(DenseLayer, nd)
+            self.moe_layers = stack(MoELayer, cfg.n_layers - nd)
         elif cfg.family == "ssm":
-            self.layers = nn.ModuleList(
-                MambaLayer(cfg, **kw) for _ in range(cfg.n_layers))
-        else:                                      # hybrid
+            self.layers = stack(MambaLayer, cfg.n_layers)
+        elif cfg.family == "hybrid":
             per = cfg.attn_every
             self.mamba_groups = nn.ModuleList(
-                nn.ModuleList(MambaLayer(cfg, **kw) for _ in range(per))
-                for _ in range(cfg.n_layers // per))
+                stack(MambaLayer, per) for _ in range(cfg.n_layers // per))
             self.shared_block = DenseLayer(cfg, **kw)
+        else:                                      # audio
+            self.enc_pos = master((cfg.enc_frames, cfg.d_model), device)
+            truncated_normal(self.enc_pos, 0.02, generator)
+            self.compute = ("enc_pos",)            # read in the dtype only
+            self.enc_layers = stack(DenseLayer, cfg.enc_layers)
+            self.dec_layers = stack(DecoderLayer, cfg.n_layers)
+            self.enc_norm = rmsnorm_init(cfg.d_model, device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -159,26 +246,41 @@ def to_compute(params: LM, cfg: ModelConfig) -> LM:
 # ---------------------------------------------------------------------------
 
 def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
-            cur_len: int = 0):
+            cur_len: int = 0, frames=None):
     """Logits for a token slab.  tokens: (B, S) integer.
 
     ``caches``: None (no cache) or the cache of ``init_cache`` (written
-    at [cur_len, cur_len+S)).  Returns (logits float32 (B,S,vocab),
-    caches, aux loss 0.0: no ported family has one).
+    at [cur_len, cur_len+S)).  ``frames``: (B, F, d) frame embeddings of
+    the audio family's stubbed frontend: given, the encoder runs over
+    them (and its output goes into ``caches["enc_out"]``); absent, the
+    decoder reads ``caches["enc_out"]``.  Returns (logits float32
+    (B,S,vocab), caches, aux loss: the float32 sum of the MoE layers'
+    load-balance losses, 0 for the other families).
     """
-    _check_family(cfg)
     dt = _dtype(cfg)
     S = tokens.shape[1]
     x = embed(params.embed, tokens, dt)
     positions = cur_len + torch.arange(S, device=x.device)
     sparse = _sparse_kw(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer_caches(name, n):
+        return [None] * n if caches is None or not n else caches[name]
 
     if cfg.family in ("dense", "vlm"):
-        cs = None if caches is None else caches["layers"]
-        for i, lp in enumerate(params.layers):
+        for lp, c in zip(params.layers, layer_caches("layers", cfg.n_layers)):
             x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
-                                      cache=None if cs is None else cs[i],
-                                      cur_len=cur_len, **sparse)
+                                      cache=c, cur_len=cur_len, **sparse)
+    elif cfg.family == "moe":
+        for lp, c in zip(params.dense_layers, layer_caches(
+                "dense_layers", len(params.dense_layers))):
+            x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
+                                      cache=c, cur_len=cur_len, **sparse)
+        for lp, c in zip(params.moe_layers, layer_caches(
+                "moe_layers", len(params.moe_layers))):
+            x, _, a = _moe_layer_apply(lp, x, cfg, positions=positions,
+                                       cache=c, cur_len=cur_len, **sparse)
+            aux = aux + a
     elif cfg.family == "ssm":
         cs = None if caches is None else caches["layers"]
         for i, lp in enumerate(params.layers):
@@ -186,7 +288,7 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
                                       cache=None if cs is None else cs[i])
             if cs is not None:
                 cs[i] = c
-    else:                                          # hybrid
+    elif cfg.family == "hybrid":
         for g, group in enumerate(params.mamba_groups):
             gc = None if caches is None else caches["mamba_groups"][g]
             for i, lp in enumerate(group):
@@ -198,9 +300,23 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
                 params.shared_block, x, cfg, positions=positions,
                 cache=None if caches is None else caches["attn"][g],
                 cur_len=cur_len, **sparse)
+    else:                                          # audio
+        if frames is not None:
+            enc = _encode(params, frames, cfg, dt)
+            if caches is not None:
+                caches["enc_out"] = enc
+        elif caches is None or "enc_out" not in caches:
+            raise ValueError("audio decode needs frames or a cache whose "
+                             "enc_out a prefill with frames filled")
+        else:
+            enc = caches["enc_out"].to(dt)
+        for lp, c in zip(params.dec_layers,
+                         layer_caches("dec_layers", cfg.n_layers)):
+            x, _ = _decoder_layer_apply(lp, x, enc, cfg, positions=positions,
+                                        cache=c, cur_len=cur_len, **sparse)
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return _project_logits(params, x, cfg), caches, 0.0
+    return _project_logits(params, x, cfg), caches, aux
 
 
 def _project_logits(params: LM, x, cfg: ModelConfig):
@@ -216,20 +332,34 @@ def _project_logits(params: LM, x, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    _check_family(cfg)
     dt = _dtype(cfg)
+
+    def attn_stack(n):
+        return [attn_cache_init(cfg, batch, max_len, dt, device)
+                for _ in range(n)]
+
     if cfg.family in ("dense", "vlm"):
-        return {"layers": [attn_cache_init(cfg, batch, max_len, dt, device)
-                           for _ in range(cfg.n_layers)]}
+        return {"layers": attn_stack(cfg.n_layers)}
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        c = {"moe_layers": attn_stack(cfg.n_layers - nd)}
+        if nd:
+            c["dense_layers"] = attn_stack(nd)
+        return c
     if cfg.family == "ssm":
         return {"layers": [mamba2_cache_init(cfg, batch, dt, device)
                            for _ in range(cfg.n_layers)]}
-    groups = cfg.n_layers // cfg.attn_every
-    return {"mamba_groups": [[mamba2_cache_init(cfg, batch, dt, device)
-                              for _ in range(cfg.attn_every)]
-                             for _ in range(groups)],
-            "attn": [attn_cache_init(cfg, batch, max_len, dt, device)
-                     for _ in range(groups)]}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        return {"mamba_groups": [[mamba2_cache_init(cfg, batch, dt, device)
+                                  for _ in range(cfg.attn_every)]
+                                 for _ in range(groups)],
+                "attn": attn_stack(groups)}
+    if cfg.family == "audio":
+        return {"dec_layers": attn_stack(cfg.n_layers),
+                "enc_out": torch.zeros((batch, cfg.enc_frames, cfg.d_model),
+                                       dtype=dt, device=device)}
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +367,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def prefill(params: LM, tokens, cfg: ModelConfig, cache):
-    logits, cache, _ = forward(params, tokens, cfg, caches=cache, cur_len=0)
+def prefill(params: LM, tokens, cfg: ModelConfig, cache, frames=None):
+    logits, cache, _ = forward(params, tokens, cfg, caches=cache, cur_len=0,
+                               frames=frames)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
-def decode_step(params: LM, tokens, cfg: ModelConfig, cache, cur_len: int):
+def decode_step(params: LM, tokens, cfg: ModelConfig, cache, cur_len: int,
+                frames=None):
     """tokens: (B, 1); cur_len: host int — the current cache fill."""
     logits, cache, _ = forward(params, tokens, cfg, caches=cache,
-                               cur_len=cur_len)
+                               cur_len=cur_len, frames=frames)
     return logits[:, -1], cache

@@ -10,9 +10,9 @@ its code says, as the port does.  Tolerances, absolute and relative:
 float32 1e-5 (measured at most 4.8e-6, on the SSD's outputs of size
 ~25), bfloat16 2^-8, one unit of bf16 rounding (measured 0: the port
 rounds in the same places).  Also: every config of the port equal to
-the reference's field by field, with equal ``n_params``; the families
-and attention the port does not run yet refusing with
-``NotImplementedError``; the cache write refusing to run past the cache.
+the reference's field by field, with equal ``n_params``; the cache write
+refusing to run past the cache; ``init_params`` drawing from its
+generator, for Zamba2 and for the MoE, MLA and audio configs.
 """
 import dataclasses
 
@@ -205,27 +205,6 @@ def test_configs_equal_reference(arch):
         == {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "deepseek_v2_236b",
-                                  "whisper_medium"])
-def test_unported_families_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    assert cfg.family in ("moe", "audio")
-    for call in (lambda: PT.init_params(cfg, torch.Generator(), "cpu"),
-                 lambda: PT.init_cache(cfg, 1, 8, "cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13"):
-            call()
-
-
-def test_mla_attention_raises():
-    cfg = dataclasses.replace(configs.get_smoke_config("llama3_2_3b"),
-                              mla=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        PA.attn_init(cfg, generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        PT.init_params(cfg, torch.Generator(), "cpu")
-
-
 def test_cache_write_past_max_len_raises():
     # the reference's dynamic_update_slice clamps the start, so a write
     # past the end lands on the last rows; the port refuses it
@@ -257,3 +236,34 @@ def test_init_params_draws_from_the_generator():
     # ±3σ truncated normal at d_in^-0.5
     assert w.abs().max() <= 3 * cfg.d_model ** -0.5
     assert abs(w.std().item() * cfg.d_model ** 0.5 - 0.986) < 0.05
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "phi3_5_moe_42b",
+                                  "whisper_medium"])
+def test_init_params_of_moe_mla_and_audio(arch):
+    # every reference leaf has its port parameter, each drawn (or set)
+    # as the reference's init sets it: the experts at d^-0.5, w_down at
+    # f^-0.5 / sqrt(2L), enc_pos at 0.02, norms at 1
+    cfg = configs.get_smoke_config(arch)
+    model = PT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = jax.eval_shape(lambda: RT.init_params(
+        ref_configs.get_smoke_config(arch), jax.random.PRNGKey(0)))
+    assert sum(p.numel() for p in model.parameters()) == \
+        sum(x.size for x in jax.tree.leaves(shapes))
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+        if name.endswith(("scale",)):
+            assert bool((p == 1).all()), name
+        elif not name.endswith(".b"):
+            assert float(p.std()) > 0, name
+    if cfg.family == "moe":
+        moe = model.moe_layers[0].moe
+        d, f = cfg.d_model, cfg.moe_d_ff
+        assert moe.w_gate.abs().max() <= 3 * d ** -0.5
+        assert moe.w_down.abs().max() <= \
+            3 * f ** -0.5 / (2 * cfg.n_layers) ** 0.5
+        assert (moe.shared is None) == (cfg.n_shared_experts == 0)
+        assert len(model.dense_layers) == cfg.first_dense_layers
+    else:
+        assert model.enc_pos.shape == (cfg.enc_frames, cfg.d_model)
+        assert model.enc_pos.abs().max() <= 3 * 0.02
