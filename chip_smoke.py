@@ -213,6 +213,35 @@ or the JAX package.  Phases, each of which must pass:
             share of (token, slot) assignments dropped by capacity in the
             prefill), Phi-3.5-MoE at 8 layers and Whisper-medium in full
             (B 4 × 48).  It launches none of K1-K8.
+28. train   the LM training path (``repro_torch.optim``,
+            ``launch/steps``, ``checkpoint/sharded``,
+            ``runtime/trainer``, ``launch/train``) of Zamba2-2.7B at its
+            published width (``TRAIN``): (a) all 54 layers and the shared
+            block (2.42e9 parameters; float32 masters, AdamW's m and v)
+            through ``Trainer.run`` at ``train_4k``'s S 4,096, B 2 (the
+            global batch of 256 cut to one card), a warm step and three
+            timed steps, the run ended by a failure injected after them
+            so that it writes no 29 GB checkpoint: seconds a step,
+            tokens/s, loss, grad_norm, lr, ``max_memory_allocated``;
+            (b) ``make_train_step`` with the config's ``grad_accum`` 4
+            at B 4 (microbatches of 1), then at B 2 the step's forward
+            and backward and its AdamW update timed apart and one step
+            under ``torch.profiler`` (kernels, device busy share);
+            (c) one group (6 Mamba2 layers and the shared block) in
+            float32, B 1 × S 256: one ``make_train_step`` on the card
+            against the CPU from the same parameters (loss, grad_norm,
+            each tensor's update); (d) on that model in bf16, B 1 × S
+            512, the restart drill: 4 steps with 2-shard checkpoints
+            every 2, a failure injected at step 3, ``run_resilient``'s
+            params, m, v and step bit for bit the uninterrupted run's;
+            (e) that checkpoint restored at 3 shards with K2's counter
+            zeroed: the tree bit for bit the saved one, K2 launched once
+            a leaf, every leaf's ``_reshard_plan`` equal to the plain
+            pass 2's (``device="cpu"``); (f) ``python -m
+            repro_torch.launch.train --arch zamba2-2.7b --smoke`` (30
+            steps) in a fresh process, its last logged loss below its
+            first.  Its kernel: K2 on the
+            restore's reshard plans.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -311,6 +340,26 @@ LM27 = dict(a=(("deepseek_v2_236b", {"n_layers": 2}),
 # (b) float32 logits, |got - want| <= tol + tol·|want|: the absorbed
 # decode is the expanded read's products in another association
 LM_MLA_TOL = 1e-3
+# Phase 28, the LM training path of Zamba2-2.7B
+# (src/repro_torch/configs/zamba2_2_7b.py; train_4k is S 4,096 at a
+# global batch of 256, configs/__init__.py SHAPES): (a) full depth through
+# Trainer.run at B 2, one warm step and a_steps timed; (b) make_train_step
+# at the config's grad_accum 4 with B 4; (c) one Mamba group (6 layers and
+# the shared block) in float32 at B 1 × S 256, card against CPU; (d) the
+# restart drill on that model at B 1 × S 512; (e) its 2-shard checkpoint
+# restored at 3 shards; (f) the launcher
+TRAIN = dict(arch="zamba2_2_7b", seq=4096, a_batch=2, a_steps=3,
+             b_batch=4, c_layers=6, c_seq=256, d_seq=512, d_steps=4,
+             d_every=2, d_shards=2, d_fail=3, e_shards=3,
+             cli=("--arch", "zamba2-2.7b", "--smoke", "--steps", "30",
+                  "--batch", "8", "--seq", "64"))
+# (c) the card against the CPU after one float32 step: loss and grad_norm
+# relative; each parameter tensor's update Δ = p_after − p_before as
+# ||Δ_card − Δ_cpu|| / ||Δ_cpu||.  At step 1 AdamW moves an element by
+# lr·g/(|g| + eps), so an element whose |g| is near eps carries the
+# devices' gradient difference into its update at full size; the L2 ratio
+# bounds how much of a tensor's update such elements are.
+TRAIN_C_TOL = dict(loss=1e-4, grad_norm=1e-3, update=1e-2)
 
 
 class SmokeError(RuntimeError):
@@ -3265,6 +3314,371 @@ def run_lm27(card: str) -> dict:
     return numbers
 
 
+def train_step_split(step, params, opt, batch, ocfg, cfg, card: str,
+                     what: str) -> dict:
+    """One training step's forward and backward and its AdamW update,
+    each timed with CUDA events, then one whole step under
+    ``torch.profiler``: its kernels and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw_update
+
+    def event_ms(fn):
+        """One warm call of ``fn`` between two CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    t_grad, (_, _, grads) = event_ms(
+        lambda: S.loss_and_grads(params, batch, cfg))
+    t_opt, _ = event_ms(lambda: adamw_update(
+        dict(params.named_parameters()), grads, opt, ocfg))
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # the raw device records: building ``prof.events()``' tree over a
+    # step's ~3e5 records took 43 s on the card's host
+    t0 = time.perf_counter()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    n, dev_us = len(dev), sum(e.duration_ns() for e in dev) / 1e3
+    print(f"{what}: reading the profile took "
+          f"{time.perf_counter() - t0!r} s")
+    print(f"{what}: forward + backward {t_grad!r} ms, AdamW update "
+          f"{t_opt!r} ms (share {t_opt / (t_grad + t_opt)!r}) on {card}")
+    if not dev_us:
+        print(f"{what}: busy share not measured (the profiler recorded no "
+              f"device time; step wall {wall_ms!r} ms under it)")
+        return {"grad_ms": t_grad, "adamw_ms": t_opt}
+    # the profiler's own host work stretches the step it records, so the
+    # busy share is also given against the step timed without it
+    print(f"{what}: one step under torch.profiler: {n} kernels, device "
+          f"time {dev_us / 1e3!r} ms of {wall_ms!r} ms wall under the "
+          f"profiler (busy {dev_us / 1e3 / wall_ms!r}); against the "
+          f"unprofiled forward + backward + update "
+          f"{dev_us / 1e3 / (t_grad + t_opt)!r} on {card}")
+    return {"grad_ms": t_grad, "adamw_ms": t_opt, "kernels": n,
+            "device_ms": dev_us / 1e3, "wall_ms": wall_ms}
+
+
+def train_metrics(m) -> dict:
+    vals = {k: float(m[k]) for k in ("loss", "ce", "grad_norm", "lr")}
+    check(all(math.isfinite(v) for v in vals.values()),
+          f"non-finite training metrics {vals}")
+    return vals
+
+
+def run_train(card: str) -> dict:
+    """Phase 28: the LM training path of Zamba2-2.7B (``TRAIN``),
+    (a)-(f)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import sharded as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_to_numpy, opt_state_to_numpy
+    from repro_torch.core import make_regions
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import emit, ops, ref
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.trainer import (SimulatedFailure, Trainer,
+                                             TrainerConfig)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, dev = TRAIN, "cuda"
+    base = get_config(spec["arch"])
+    seq = spec["seq"]
+    ocfg = AdamWConfig()                 # the reference's defaults
+    numbers: dict = {}
+    t_phase = time.perf_counter()
+
+    def part(name, t0):
+        print(f"[train] ({name}) wall {time.perf_counter() - t0!r} s")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    du = shutil.disk_usage(tmp)
+    print(f"[train] checkpoints under {tmp}: {du.free / 1e9!r} GB free of "
+          f"{du.total / 1e9!r}")
+
+    def n_params(model):
+        return sum(p.numel() for p in model.parameters())
+
+    # -- (a) full width and depth through Trainer.run ------------------------
+    t_part = time.perf_counter()
+    B, n_a = spec["a_batch"], spec["a_steps"] + 1
+    tr = Trainer(base, ocfg, TrainerConfig(ckpt_dir=str(tmp / "a"),
+                                           ckpt_every=10 ** 9),
+                 DataConfig(vocab=base.vocab, seq_len=seq, global_batch=B),
+                 device=dev)
+    marks, rows = [], []
+
+    def on_step(step, m):
+        rows.append(train_metrics(m))          # syncs on the loss
+        marks.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tr.run(n_a + 1, failure_at=n_a, on_step=on_step)
+        check(False, "(a) the injected failure did not stop the run")
+    except SimulatedFailure:
+        pass
+    peak = torch.cuda.max_memory_allocated()
+    del tr
+    secs = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    timed = secs[1:]
+    step_s = statistics.median(timed)
+    for i, (r, sec) in enumerate(zip(rows, secs)):
+        print(f"[train] (a) {base.name} all {base.n_layers} layers, B {B} × "
+              f"S {seq}, step {i}{' (warm)' if i == 0 else ''}: "
+              f"{sec!r} s, loss {r['loss']!r}, grad_norm "
+              f"{r['grad_norm']!r}, lr {r['lr']!r} on {card}")
+    print(f"[train] (a) Trainer.run: {statistics.median(timed)!r} s a step "
+          f"(median of {len(timed)}), {B * seq / step_s!r} tokens/s, "
+          f"max_memory_allocated {peak / 1e9!r} GB on {card}")
+    numbers.update(a_step_s=step_s, a_tok_s=B * seq / step_s,
+                   a_peak_gb=peak / 1e9, a_loss=[r["loss"] for r in rows])
+    part("a", t_part)
+    t_part = time.perf_counter()
+
+    # -- (b) make_train_step at grad_accum 4, then the step's split ---------
+    check(base.grad_accum == 4, f"grad_accum is {base.grad_accum}")
+    model = T.init_params(base, torch.Generator(dev).manual_seed(0), dev)
+    named = dict(model.named_parameters())
+    opt = adamw_init(named)
+    rng = np.random.default_rng(28)
+
+    def tokens(b, s):
+        return torch.from_numpy(rng.integers(0, base.vocab, (b, s + 1)
+                                             ).astype(np.int32)).to(dev)
+    Bb = spec["b_batch"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, m = S.make_train_step(base, ocfg)(model, opt,
+                                              {"tokens": tokens(Bb, seq)})
+    r = train_metrics(m)
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] (b) make_train_step, grad_accum {base.grad_accum}, B "
+          f"{Bb} × S {seq} ({n_params(model)} parameters): {sec!r} s, "
+          f"{Bb * seq / sec!r} tokens/s, loss {r['loss']!r}, grad_norm "
+          f"{r['grad_norm']!r}, lr {r['lr']!r}, max_memory_allocated "
+          f"{peak / 1e9!r} GB on {card}")
+    numbers.update(b_step_s=sec, b_tok_s=Bb * seq / sec,
+                   b_peak_gb=peak / 1e9)
+    mono = dataclasses.replace(base, grad_accum=1)
+    numbers.update(train_step_split(
+        S.make_train_step(mono, ocfg), model, opt,
+        {"tokens": tokens(B, seq)}, ocfg, mono, card,
+        f"[train] (b) B {B} × S {seq}"))
+    del model, named, opt
+    torch.cuda.empty_cache()
+    part("b", t_part)
+    t_part = time.perf_counter()
+
+    # -- (c) one group in float32: the card against the CPU -----------------
+    cfg = dataclasses.replace(base, n_layers=spec["c_layers"],
+                              dtype="float32", grad_accum=1)
+    card_m = T.init_params(cfg, torch.Generator(dev).manual_seed(1), dev)
+    cpu_m = T.LM(cfg, None, "cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    before = {n: p.detach().cpu().clone() for n, p in
+              cpu_m.named_parameters()}
+    tok = tokens(1, spec["c_seq"])
+    step = S.make_train_step(cfg, ocfg)
+    outs = {}
+    for name, model, t in (("card", card_m, tok), ("cpu", cpu_m, tok.cpu())):
+        _, _, m = step(model, adamw_init(dict(model.named_parameters())),
+                       {"tokens": t})
+        outs[name] = train_metrics(m)
+    rel = {k: abs(outs["card"][k] - outs["cpu"][k]) / abs(outs["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    upd = 0.0
+    for (n, pc), (_, pg) in zip(cpu_m.named_parameters(),
+                                card_m.named_parameters()):
+        d_cpu = pc.detach() - before[n]
+        d_card = pg.detach().cpu() - before[n]
+        upd = max(upd, float(torch.linalg.vector_norm(d_card - d_cpu)
+                             / torch.linalg.vector_norm(d_cpu)))
+    rel["update"] = upd
+    print(f"[train] (c) {cfg.name} at {cfg.n_layers} layers, float32, "
+          f"{n_params(cpu_m)} parameters, B 1 × S {spec['c_seq']}, one "
+          f"make_train_step on the card against the CPU: loss "
+          f"{outs['card']['loss']!r} / {outs['cpu']['loss']!r} (rel "
+          f"{rel['loss']!r}), grad_norm {outs['card']['grad_norm']!r} / "
+          f"{outs['cpu']['grad_norm']!r} (rel {rel['grad_norm']!r}), the "
+          f"largest ||Δcard − Δcpu|| / ||Δcpu|| of a tensor {upd!r} (held "
+          f"to {TRAIN_C_TOL})")
+    for k, tol in TRAIN_C_TOL.items():
+        check(rel[k] <= tol, f"(c) {k}: {rel[k]!r} > {tol}")
+    numbers.update({f"c_rel_{k}": v for k, v in rel.items()})
+    del card_m, cpu_m, before
+    torch.cuda.empty_cache()
+    part("c", t_part)
+    t_part = time.perf_counter()
+
+    # -- (d) the restart drill -----------------------------------------------
+    cfg = dataclasses.replace(base, n_layers=spec["c_layers"])
+    nd = spec["d_steps"]
+
+    def trainer(d):
+        return Trainer(cfg, ocfg, TrainerConfig(
+            ckpt_dir=str(tmp / d), ckpt_every=spec["d_every"],
+            n_ckpt_shards=spec["d_shards"]),
+            DataConfig(vocab=cfg.vocab, seq_len=spec["d_seq"],
+                       global_batch=1), device=dev)
+    t0 = time.perf_counter()
+    p1, o1, m1 = trainer("straight").run(nd)
+    t_straight = time.perf_counter() - t0
+    shutil.rmtree(tmp / "straight")
+    t0 = time.perf_counter()
+    p2, o2, m2 = trainer("restarted").run_resilient(
+        nd, failures=(spec["d_fail"],))
+    t_restart = time.perf_counter() - t0
+    same = (all(torch.equal(a, b) for a, b in zip(p1.parameters(),
+                                                  p2.parameters()))
+            and all(torch.equal(o1[k][n], o2[k][n]) for k in ("m", "v")
+                    for n in o1[k])
+            and torch.equal(o1["step"], o2["step"])
+            and all(torch.equal(m1[k], m2[k]) for k in m1))
+    print(f"[train] (d) {cfg.name} at {cfg.n_layers} layers, bf16, B 1 × S "
+          f"{spec['d_seq']}: {nd} steps, 2-shard checkpoints every "
+          f"{spec['d_every']}, failure at step {spec['d_fail']}: params, m, "
+          f"v, step and metrics of run_resilient bit for bit the "
+          f"uninterrupted run's: {same}; wall {t_straight!r} s straight, "
+          f"{t_restart!r} s with the restart, checkpoints and restore "
+          f"included, on {card}")
+    check(same, "(d) the restarted run differs from the uninterrupted one")
+    del p1, o1
+    numbers.update(d_straight_s=t_straight, d_restart_s=t_restart)
+
+    # -- (e) the elastic restore through K2 ----------------------------------
+    d_dir, last = tmp / "restarted", ckpt.latest_step(tmp / "restarted")
+    check(last == nd, f"(e) latest step {last}")
+    saved = {"params": lm_params_to_numpy(cfg, p2),
+             "opt": opt_state_to_numpy(o2)}
+    del p2, o2
+    torch.cuda.empty_cache()
+    manifest = json.loads((d_dir / f"step_{last:07d}" / "manifest.json"
+                           ).read_text())
+    n_leaves = len(manifest["leaves"])
+    emit.twopass_emit.launches = 0
+    t0 = time.perf_counter()
+    got = ckpt.restore(d_dir, last, saved, n_shards_new=spec["e_shards"],
+                       device=dev)
+    t_restore = time.perf_counter() - t0
+    launches = emit.twopass_emit.launches
+    flat_g, flat_s = ckpt._leaf_paths(got), ckpt._leaf_paths(saved)
+    equal = [a == b and x.dtype == y.dtype and x.tobytes() == y.tobytes()
+             for (a, x), (b, y) in zip(flat_g, flat_s)]
+    plans_equal = 0
+    for rec in manifest["leaves"]:
+        rows = rec["shape"][0] if rec["shape"] else 1
+        old = [tuple(r) for r in rec["ranges"]]
+        new = ckpt._split_ranges(rows, spec["e_shards"])
+        plans_equal += (ckpt._reshard_plan(old, new, dev)
+                        == ckpt._reshard_plan(old, new, "cpu"))
+    print(f"[train] (e) the {spec['d_shards']}-shard checkpoint of step "
+          f"{last} ({n_leaves} leaves) restored at {spec['e_shards']} "
+          f"shards in {t_restore!r} s: {sum(equal)} of {len(equal)} leaves "
+          f"bit for bit the saved tree; K2 launched {launches} times; "
+          f"{plans_equal} of {n_leaves} plans equal to the plain pass 2's "
+          f"on {card}")
+    check(len(flat_g) == len(flat_s) == n_leaves and all(equal),
+          "(e) the restored tree differs from the saved one")
+    check(launches == n_leaves, f"(e) K2 launched "
+          f"{launches} times for {n_leaves} leaves")
+    check(plans_equal == n_leaves, "(e) a reshard plan differs from the "
+          "plain pass 2's")
+    del got, saved
+    shutil.rmtree(tmp)
+    numbers["e_restore_s"] = t_restore
+    part("d, e", t_part)
+    t_part = time.perf_counter()
+
+    # K2 at the restore's plan of a leaf of >= 3 rows (3 new ranges, 2 old)
+    old, new = ckpt._split_ranges(6, 2), ckpt._split_ranges(6, 3)
+    Sr = make_regions(np.asarray([[lo] for lo, _ in new], np.float32),
+                          np.asarray([[hi] for _, hi in new], np.float32),
+                          dev)
+    Ur = make_regions(np.asarray([[lo] for lo, _ in old], np.float32),
+                          np.asarray([[hi] for _, hi in old], np.float32),
+                          dev)
+    cap = (len(new) + len(old)) * 2 + 8
+    perm_s, perm_u, starts, counts, offs, _, _ = ops._phase1(Sr, Ur, cap)
+    args = (offs, counts, starts, perm_s, perm_u)
+    k2_err = exact_err(emit.twopass_emit(*args, max_pairs=cap),
+                       ref.twopass_emit(*args, max_pairs=cap))
+    check(k2_err == 0, "(e) K2 differs from its plain version")
+    times = {"k2_restore": time_ms(lambda: emit.twopass_emit(
+        *args, max_pairs=cap)),
+        "k2_restore_plain": time_ms(lambda: ref.twopass_emit(
+            *args, max_pairs=cap))}
+    n, m = len(new), len(old)
+    E = n + m
+    steps = math.ceil(math.log2(E + 1))
+    k2_bound = bound_ms(4 * ((E + 1) + 2 * E + n + m) + 8 * cap,
+                        (6 * steps + 12) * cap)
+    print(f"[train] (e) K2 at a leaf's plan (n {n}, m {m}, cap {cap}): "
+          f"{times['k2_restore']!r} ms through its wrapper, plain "
+          f"{times['k2_restore_plain']!r} ms, bound {k2_bound[0]!r} ms "
+          f"({k2_bound[1]}) on {card}")
+
+    # -- (f) the launcher -----------------------------------------------------
+    import os
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *spec["cli"], "--device", dev, "--ckpt-dir", cli_dir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, env=env, cwd=ROOT)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"{' '.join(cmd[1:])} exited "
+          f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    losses = [float(x) for x in re.findall(r"^step +\d+ loss ([\d.]+) ",
+                                           out.stdout, re.M)]
+    for line in out.stdout.strip().splitlines():
+        print(f"[train] (f) {line}")
+    print(f"[train] (f) {' '.join(cmd[1:])}: exit 0, wall {wall!r} s on "
+          f"{card}")
+    check(len(losses) >= 2 and losses[-1] < losses[0],
+          f"(f) the launcher's loss did not fall: {losses}")
+    numbers["f_wall_s"] = wall
+    part("f", t_part)
+    print(f"[train] phase 28 wall {time.perf_counter() - t_phase!r} s")
+
+    key = "twopass_emit (checkpoint restore)"
+    kernels = [{"name": key, "route": "cuda",
+                "source": "src/repro_torch/csrc/emit.cu",
+                "replaces": "src/repro/kernels/emit.py:185",
+                "launches": launches, "max_abs_err": k2_err,
+                "ms": times["k2_restore"],
+                "plain_ms": times["k2_restore_plain"],
+                "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+                "library_ms": None, "match": True}]
+    return {"launches": {key: launches}, "kernels": kernels,
+            "times": times, "numbers": numbers}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3300,10 +3714,11 @@ def main() -> int:
     run_audit(card)
     run_lm(card)
     run_lm27(card)
+    out8 = run_train(card)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
                          **out5["launches"], **out6["launches"],
-                         **out7["launches"]}.items():
+                         **out7["launches"], **out8["launches"]}.items():
         check(count > 0, f"kernel {kname} was not launched on its path")
     check(out["koln_launches"] > 0, "Koln count() did not launch K1")
 
@@ -3335,9 +3750,11 @@ def main() -> int:
     for key, ms in out7["times"].items():
         print(f"[time] {key}: {ms!r} ms (median of {REPS}; "
               f"{out7['shapes']}) on {card}")
+    for key, ms in out8["times"].items():
+        print(f"[time] {key}: {ms!r} ms (median of {REPS}) on {card}")
     print(json.dumps({"kernels": out["kernels"] + out2["kernels"]
                       + out3["kernels"] + out4["kernels"]
-                      + out7["kernels"]}))
+                      + out7["kernels"] + out8["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,9 @@
 
 The port's own copy of the JAX package's ``models/config.py``, field for
 field (the port imports nothing of that package); the tests hold every
-config and ``n_params`` equal to it.  The MLA, MoE, encoder-decoder,
-remat, ``grad_accum`` and ``unroll_layers`` fields are carried for those
-configs' sake; the port's LM path does not read all of them yet.
+config and ``n_params`` equal to it.  ``unroll_layers`` (the
+reference's cost-probe compiles) is carried for the configs' sake; the
+port reads every other field.
 """
 from __future__ import annotations
 

@@ -132,8 +132,11 @@ def embed_init(vocab: int, d: int, *, generator=None, device="cuda") -> Embed:
 
 
 def embed(p: Embed, tokens: torch.Tensor, dtype=torch.bfloat16):
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return p.table[tokens].to(dtype)
+    # gather, then cast: the same values as the reference's cast-then-gather.
+    # F.embedding's backward sums a token's rows in a fixed order on the
+    # card too, where indexing's (index_put_ with accumulate) is not
+    # promised to
+    return F.embedding(tokens, p.table).to(dtype)
 
 
 # -- rotary positional embedding ---------------------------------------------

@@ -14,13 +14,15 @@ axis and runs it with ``lax.scan``; here the layers are an
                   decoder [L × (self-attn + cross-attn + mlp)], the conv
                   frontend stubbed (precomputed frame embeddings)
 
-``loss_fn`` is not ported: it waits for the training slice (ROADMAP
-Queue 1 item 13).
-
-Entry points (used by ``launch/lm_serve`` and the tests):
+Entry points (used by ``launch/``, ``runtime/`` and the tests):
   init_params(cfg, generator, device)   — the model, fp32 masters
   to_compute(params, cfg)               — its serving copy, in place
-  forward(params, tokens, cfg, ...)     — logits (f32) + caches + aux
+                                          (never applied to a model in
+                                          training: AdamW updates the
+                                          float32 masters)
+  forward(params, tokens, cfg, ...)     — logits (f32) or features +
+                                          caches + aux
+  loss_fn(params, batch, cfg)           — next-token CE (+ MoE aux)
   init_cache(cfg, batch, max_len, device)
   prefill(params, tokens, cfg, cache, frames) — last logits + cache
   decode_step(params, tokens, cfg, cache, cur_len) — one token
@@ -29,11 +31,21 @@ Caches are dicts of per-layer dicts whose tensors ``forward`` updates in
 place (KV rows) or replaces (the Mamba states, the audio encoder's
 output ``enc_out``); ``prefill`` and ``decode_step`` return the same
 dict.  ``cur_len`` is a host int.
+
+Remat: with ``cfg.remat``, a forward without caches that autograd
+records runs each layer body (every family's, the hybrid's Mamba layers
+and each application of its shared block, the audio encoder's and
+decoder's) under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of each scanned layer), so a layer's activations
+live only while its backward runs; the recompute is the same ops on the
+same inputs, so the gradients are bit for bit those without remat.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_apply, attn_cache_init, attn_init, chunked_sdpa
 from .config import ModelConfig
@@ -159,16 +171,26 @@ def _cross_attn(p, xq, enc, cfg: ModelConfig):
     return linear(p.wo, out.reshape(B, S, -1), dt)
 
 
-def _encode(params: LM, frames, cfg: ModelConfig, dt):
+def _encode(params: LM, frames, cfg: ModelConfig, dt, run=None):
     """The audio encoder over frame embeddings (B, F, d): non-causal dense
-    layers, then ``enc_norm``."""
-    F = frames.shape[1]
-    x = frames.to(dt) + params.enc_pos[:F].to(dt)
-    positions = torch.arange(F, device=x.device)
+    layers (each through ``run``, ``forward``'s remat wrapper; called
+    directly when None), then ``enc_norm``."""
+    run = run or _call
+    n_frames = frames.shape[1]
+    x = frames.to(dt) + params.enc_pos[:n_frames].to(dt)
+    positions = torch.arange(n_frames, device=x.device)
     for lp in params.enc_layers:
-        x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
-                                  causal=False)
+        x = run(lambda x, lp=lp: _dense_layer_apply(
+            lp, x, cfg, positions=positions, causal=False)[0], x)
     return rmsnorm(params.enc_norm, x, cfg.norm_eps)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -246,16 +268,18 @@ def to_compute(params: LM, cfg: ModelConfig) -> LM:
 # ---------------------------------------------------------------------------
 
 def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
-            cur_len: int = 0, frames=None):
+            cur_len: int = 0, frames=None, return_features: bool = False):
     """Logits for a token slab.  tokens: (B, S) integer.
 
     ``caches``: None (no cache) or the cache of ``init_cache`` (written
     at [cur_len, cur_len+S)).  ``frames``: (B, F, d) frame embeddings of
     the audio family's stubbed frontend: given, the encoder runs over
     them (and its output goes into ``caches["enc_out"]``); absent, the
-    decoder reads ``caches["enc_out"]``.  Returns (logits float32
-    (B,S,vocab), caches, aux loss: the float32 sum of the MoE layers'
-    load-balance losses, 0 for the other families).
+    decoder reads ``caches["enc_out"]``.  ``return_features``: skip the
+    LM head (``loss_fn`` projects in chunks).  Returns (logits float32
+    (B,S,vocab) or the final-normed features (B,S,d), caches, aux loss:
+    the float32 sum of the MoE layers' load-balance losses, 0 for the
+    other families).
     """
     dt = _dtype(cfg)
     S = tokens.shape[1]
@@ -263,46 +287,51 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
     positions = cur_len + torch.arange(S, device=x.device)
     sparse = _sparse_kw(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    run = (_checkpointed if cfg.remat and caches is None
+           and torch.is_grad_enabled() else _call)
 
     def layer_caches(name, n):
         return [None] * n if caches is None or not n else caches[name]
 
+    def dense(lp, x, c):
+        return run(lambda x: _dense_layer_apply(
+            lp, x, cfg, positions=positions, cache=c, cur_len=cur_len,
+            **sparse)[0], x)
+
+    def mamba(lp, x, c):
+        return run(lambda x: _mamba_layer_apply(lp, x, cfg, cache=c), x)
+
     if cfg.family in ("dense", "vlm"):
         for lp, c in zip(params.layers, layer_caches("layers", cfg.n_layers)):
-            x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
-                                      cache=c, cur_len=cur_len, **sparse)
+            x = dense(lp, x, c)
     elif cfg.family == "moe":
         for lp, c in zip(params.dense_layers, layer_caches(
                 "dense_layers", len(params.dense_layers))):
-            x, _ = _dense_layer_apply(lp, x, cfg, positions=positions,
-                                      cache=c, cur_len=cur_len, **sparse)
+            x = dense(lp, x, c)
         for lp, c in zip(params.moe_layers, layer_caches(
                 "moe_layers", len(params.moe_layers))):
-            x, _, a = _moe_layer_apply(lp, x, cfg, positions=positions,
-                                       cache=c, cur_len=cur_len, **sparse)
+            x, a = run(lambda x, lp=lp, c=c: _moe_layer_apply(
+                lp, x, cfg, positions=positions, cache=c, cur_len=cur_len,
+                **sparse)[::2], x)
             aux = aux + a
     elif cfg.family == "ssm":
         cs = None if caches is None else caches["layers"]
         for i, lp in enumerate(params.layers):
-            x, c = _mamba_layer_apply(lp, x, cfg,
-                                      cache=None if cs is None else cs[i])
+            x, c = mamba(lp, x, None if cs is None else cs[i])
             if cs is not None:
                 cs[i] = c
     elif cfg.family == "hybrid":
         for g, group in enumerate(params.mamba_groups):
             gc = None if caches is None else caches["mamba_groups"][g]
             for i, lp in enumerate(group):
-                x, c = _mamba_layer_apply(lp, x, cfg,
-                                          cache=None if gc is None else gc[i])
+                x, c = mamba(lp, x, None if gc is None else gc[i])
                 if gc is not None:
                     gc[i] = c
-            x, _ = _dense_layer_apply(
-                params.shared_block, x, cfg, positions=positions,
-                cache=None if caches is None else caches["attn"][g],
-                cur_len=cur_len, **sparse)
+            x = dense(params.shared_block, x,
+                      None if caches is None else caches["attn"][g])
     else:                                          # audio
         if frames is not None:
-            enc = _encode(params, frames, cfg, dt)
+            enc = _encode(params, frames, cfg, dt, run)
             if caches is not None:
                 caches["enc_out"] = enc
         elif caches is None or "enc_out" not in caches:
@@ -312,10 +341,13 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
             enc = caches["enc_out"].to(dt)
         for lp, c in zip(params.dec_layers,
                          layer_caches("dec_layers", cfg.n_layers)):
-            x, _ = _decoder_layer_apply(lp, x, enc, cfg, positions=positions,
-                                        cache=c, cur_len=cur_len, **sparse)
+            x = run(lambda x, lp=lp, c=c: _decoder_layer_apply(
+                lp, x, enc, cfg, positions=positions, cache=c,
+                cur_len=cur_len, **sparse)[0], x)
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if return_features:
+        return x, caches, aux
     return _project_logits(params, x, cfg), caches, aux
 
 
@@ -365,6 +397,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+def _chunk_loss(params: LM, xc, yc, cfg: ModelConfig):
+    """(sum of logsumexp − gold over the chunk's valid labels, their
+    count), both float32.  The gold logit is selected by a mask, not a
+    gather, whose backward on the card adds with atomics."""
+    logits = _project_logits(params, xc, cfg)
+    logz = torch.logsumexp(logits, dim=-1)
+    hit = torch.arange(logits.shape[-1], device=logits.device) \
+        == yc.clamp(min=0)[..., None]
+    gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+    valid = (yc >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig):
+    """batch: {"tokens": (B, S+1)} (+ "frames" for audio).
+
+    Cross entropy runs in sequence chunks of ``cfg.ce_chunk`` positions,
+    each under ``torch.utils.checkpoint`` while autograd records, so the
+    (B, S, vocab) float32 logits are never alive at once; labels past S
+    (when the chunk does not divide S) are −1 and count for nothing.
+    Returns (ce + 0.01·aux, {"ce", "aux"}), float32 0-dim tensors.
+    """
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    feats, _, aux = forward(params, inputs, cfg, frames=batch.get("frames"),
+                            return_features=True)
+    S = feats.shape[1]
+    C = min(cfg.ce_chunk, S)
+    pad = (-S) % C
+    if pad:
+        feats = F.pad(feats, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    run = _checkpointed if torch.is_grad_enabled() else _call
+    tot = torch.zeros((), dtype=torch.float32, device=feats.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for c0 in range(0, S + pad, C):
+        t, n = run(lambda xc, yc: _chunk_loss(params, xc, yc, cfg),
+                   feats[:, c0:c0 + C], labels[:, c0:c0 + C])
+        tot, cnt = tot + t, cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
 
 @torch.no_grad()
 def prefill(params: LM, tokens, cfg: ModelConfig, cache, frames=None):

@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.convert, repro_torch.sparse, "
             "repro_torch.serve.harness, repro_torch.analysis.steady, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.launch.lm_serve\n"
+            "repro_torch.launch.lm_serve, repro_torch.launch.serve, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.optim.compress, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint.sharded, repro_torch.runtime.trainer\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
