@@ -5,6 +5,9 @@ Run from the repository root on a host with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --overlap-check`` runs only phases 27 and 28,
+alone and beside phase 29's background dry runs (``overlap_check``).
+
 It imports only ``torch`` and the port (``src/repro_torch``), never JAX
 or the JAX package.  Phases, each of which must pass:
 
@@ -242,6 +245,35 @@ or the JAX package.  Phases, each of which must pass:
             steps) in a fresh process, its last logged loss below its
             first.  Its kernel: K2 on the
             restore's reshard plans.
+29. multi   the LM stack's multi-device modules (``launch/mesh``,
+            ``launch/partition``, ``models/sharding``,
+            ``runtime/pipeline``, ``launch/dryrun``) and the quickstart
+            twin (``MULTI``): (a) ``examples/quickstart_torch.py`` on the
+            card and with ``--device cpu`` in fresh processes, the same
+            lines, K1, K2, K3 and K8 launched on the card; (b)
+            Zamba2-2.7B, 54 layers, float32, its parameters and cache as
+            DTensors placed by ``partition``'s specs on a (1, 1) NCCL mesh
+            under ``launch.mesh.sharded`` (a size-1 mesh dim
+            replicates, so every placement is replicated, each
+            ``constrain`` returns its input and no op is repaired: the
+            phase shows that replicated DTensors run the model bit for
+            bit, not a redistribution), a 512-token prefill and 8 decode steps
+            against the plain path on the same weights (``LM_C_TOL``; bit
+            equality printed), decode ms a token beside the plain path's;
+            (c) Mamba2-780m, 48 layers, bf16, B 8 × S 2,048 through
+            ``pipeline_forward`` at 4 microbatches over NCCL at world size
+            1: bit-equal to the stack run microbatch by microbatch, within
+            ``MULTI_C_TOL`` of the whole batch, times beside both; (d) the
+            dry run, started in fresh processes before phase 27 so that
+            its host work overlaps phases 27 and 28: ``--smoke`` (mamba2-780m,
+            ``long_500k``, both meshes) on cuda fake tensors, the
+            production cell zamba2-2.7b ``train_4k`` on the 256-rank mesh
+            with its wall time, and the one-card cell (Zamba2 train, B 2
+            × S 4,096, ``grad_accum`` 1, a (1, 1) mesh), whose
+            ``flops_per_device`` must equal ``FlopCounterMode`` on the
+            real step and whose ``peak_estimate`` over phase 28 (a)'s
+            measured peak must lie in ``MULTI_PEAK_RATIO``.  It launches
+            K1, K2, K3 and K8 in (a)'s card process only.
 
 Every path runs with the launch counters of its kernels zeroed just
 before and read just after; each kernel must have launched.  Then one
@@ -360,6 +392,33 @@ TRAIN = dict(arch="zamba2_2_7b", seq=4096, a_batch=2, a_steps=3,
 # devices' gradient difference into its update at full size; the L2 ratio
 # bounds how much of a tensor's update such elements are.
 TRAIN_C_TOL = dict(loss=1e-4, grad_norm=1e-3, update=1e-2)
+
+
+# Phase 29, the LM stack's multi-device modules (launch/mesh.py,
+# launch/partition.py, models/sharding.py, runtime/pipeline.py,
+# launch/dryrun.py, launch/probe_buffers.py) and the quickstart twin: (a)
+# examples/quickstart_torch.py on the card against --device cpu; (b)
+# Zamba2-2.7B at full width and depth in float32 with its parameters and
+# cache placed by partition's specs on a (1, 1) NCCL mesh, constrain
+# active, a b_prompt-token prefill and b_steps decode steps against the
+# plain path on the same weights (held to LM_C_TOL); (c) Mamba2-780m at
+# full width and depth in bf16, B c_batch × S c_seq through
+# pipeline_forward at c_micro microbatches over NCCL at world size 1;
+# (d) the dry run: --smoke on cuda fake tensors, the production cell
+# d_prod on the 256-rank single mesh, and the one-card cell (Zamba2 train
+# at B d_batch × S d_seq on a (1, 1) mesh, grad_accum 1 as Trainer.run)
+MULTI = dict(b_arch="zamba2_2_7b", b_prompt=512, b_steps=8,
+             c_arch="mamba2_780m", c_batch=8, c_seq=2048, c_micro=4,
+             d_prod=("zamba2-2.7b", "train_4k"), d_batch=2, d_seq=4096)
+# (c) the pipeline against the whole-batch stack, bf16: the microbatch
+# stack is its bits (checked equal); the whole batch's products take
+# other shapes, |got - want| <= atol + rtol·|want| and the relative RMS
+# error at most rms
+MULTI_C_TOL = dict(atol=1e-1, rtol=1e-1, rms=5e-2)
+# (d) the one-card cell's peak_estimate over phase 28 (a)'s measured
+# max_memory_allocated: the trace sees every tensor the step's Python
+# code makes, not the workspaces that kernels allocate inside one op
+MULTI_PEAK_RATIO = (0.90, 1.05)
 
 
 class SmokeError(RuntimeError):
@@ -3679,6 +3738,495 @@ def run_train(card: str) -> dict:
             "times": times, "numbers": numbers}
 
 
+_PG_DIRS: list = []
+
+
+def _world1() -> None:
+    """Start, once, a NCCL process group of world size 1 on a ``file://``
+    store in a temporary directory; ``_end_world1`` destroys it and the
+    directory."""
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    _PG_DIRS.append(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def _end_world1() -> None:
+    import shutil
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    while _PG_DIRS:
+        shutil.rmtree(_PG_DIRS.pop(), ignore_errors=True)
+
+
+def multi_quickstart(card: str) -> dict:
+    """29 (a): the quickstart twin on the card and with --device cpu, in
+    fresh processes side by side: the same lines but the last, which on
+    the card counts K1, K2, K3 and K8's launches."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script = str(ROOT / "examples" / "quickstart_torch.py")
+    t0 = time.perf_counter()
+    procs = {d: subprocess.Popen([sys.executable, script, "--device", d],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=ROOT)
+             for d in ("cuda", "cpu")}
+    outs = {}
+    for d, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0, f"(a) quickstart_torch.py --device {d} "
+              f"exited {proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}")
+        outs[d] = [line for line in out.splitlines() if line.strip()]
+    wall = time.perf_counter() - t0
+    card_lines, cpu_lines = outs["cuda"], outs["cpu"]
+    last = card_lines.pop()
+    check(cpu_lines.pop() == "no kernel ran: the kernels' plain versions "
+          "stood in on cpu", f"(a) the CPU run ended {outs['cpu'][-1]!r}")
+    check(card_lines == cpu_lines, "(a) the card's lines differ from the "
+          f"CPU's:\n{card_lines}\n{cpu_lines}")
+    m = re.fullmatch(r"kernel launches: K1=(\d+) K2=(\d+) K3=(\d+) "
+                     r"K8=(\d+)", last)
+    check(m is not None and all(int(n) > 0 for n in m.groups()),
+          f"(a) the card run's kernels: {last!r}")
+    for line in card_lines:
+        print(f"[multi] (a) {line}")
+    print(f"[multi] (a) quickstart_torch.py on the card: {last}; its lines "
+          f"equal --device cpu's; both runs {wall!r} s wall on {card}")
+    return {"a_wall_s": wall,
+            "a_launches": dict(zip(("K1", "K2", "K3", "K8"),
+                                   map(int, m.groups())))}
+
+
+def _teacher_forced_on(model, cfg, tokens, n_pre: int, cache,
+                       on_step=None):
+    """``lm_teacher_forced`` on a given cache; ``on_step`` is called after
+    the prefill and after every decode step.  DTensor logits come back
+    whole."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    logits, cache = T.prefill(model, tokens[:, :n_pre], cfg, cache)
+    out = [whole(logits)]
+    on_step and on_step()
+    for i in range(n_pre, tokens.shape[1]):
+        logits, cache = T.decode_step(model, tokens[:, i:i + 1], cfg, cache,
+                                      i)
+        out.append(whole(logits))
+        on_step and on_step()
+    return torch.stack(out, dim=1)
+
+
+def multi_partition(cfg, n_pre: int, steps: int, card: str,
+                    tol: float = LM_C_TOL) -> dict:
+    """29 (b): ``cfg`` with its parameters and cache placed by
+    ``launch.partition`` on a (1, 1) mesh of the world-size-1 group, run
+    under ``launch.mesh.sharded``, against the plain path on the same
+    weights: logits, bit-equality, decode ms a token.  A size-1 mesh dim
+    replicates, so every DTensor is replicated, each ``constrain`` returns
+    its input and no op needs a repair (checked): this shows replicated
+    DTensor dispatch bit for bit, not a redistribution."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import partition as pt
+    from repro_torch.launch.mesh import make_mesh, sharded
+    from repro_torch.models import transformer as T
+
+    dev = "cuda"
+    _world1()
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in model.parameters())
+    rng = np.random.default_rng(29)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_pre + steps))
+                           ).to(dev)
+    marks: list = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    def decode_ms():
+        return statistics.median(
+            (b - a) * 1e3 for a, b in zip(marks[1:], marks[2:]))
+    plain = _teacher_forced_on(model, cfg, tok, n_pre, T.init_cache(
+        cfg, 1, n_pre + steps + 1, dev), mark)
+    plain_ms = decode_ms()
+    marks.clear()
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    pt.distribute_params(model, mesh)
+    cache = T.init_cache(cfg, 1, n_pre + steps + 1, dev)
+    cspecs = pt.sanitize_tree(mesh, pt.cache_specs(
+        mesh, cache, batch=1, seq_shard=True), cache)
+    cache = pt.distribute_tree(cache, cspecs, mesh)
+    with sharded(mesh) as reshard:
+        placed = _teacher_forced_on(model, cfg, tok, n_pre, cache, mark)
+    placed_ms = decode_ms()
+    check(reshard.ops == {}, f"(b) ops repaired on a (1, 1) mesh: "
+          f"{reshard.ops}")
+    err = check_logits(placed, plain, tol, "(b) placed against plain")
+    same = bool(torch.equal(placed, plain))
+    print(f"[multi] (b) {cfg.name}, {cfg.n_layers} layers, {n_params} "
+          f"parameters, {cfg.dtype}, B 1: parameters and cache as DTensors "
+          f"on a (1, 1) mesh ({dist_backend()}), constrain active, a "
+          f"{n_pre}-token prefill and {steps} decode steps against the "
+          f"plain path on the same weights: max abs err {err!r} (held to "
+          f"{tol} + {tol}·|want|), bit-equal {same}; ops repaired "
+          f"{reshard.ops}")
+    print(f"[multi] (b) decode {placed_ms!r} ms a token placed, "
+          f"{plain_ms!r} ms plain (median of {steps - 1} steps, host "
+          f"clock, synchronized) on {card}")
+    del model, cache
+    return {"b_max_abs_err": err, "b_bit_equal": same,
+            "b_reshards": dict(reshard.ops),
+            "b_decode_ms": placed_ms, "b_plain_decode_ms": plain_ms}
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+    return dist.get_backend() if dist.is_initialized() else "none"
+
+
+def multi_pipeline(cfg, B: int, S: int, M: int, card: str) -> dict:
+    """29 (c): ``cfg``'s layer stack through ``pipeline_forward`` at
+    ``M`` microbatches on the world-size-1 group, against the serial
+    stack microbatch by microbatch (bit for bit) and on the whole batch
+    (``MULTI_C_TOL``); times beside the serial stack's."""
+    import torch
+    from torch import nn
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.pipeline import pipeline_forward
+
+    dev = "cuda"
+    _world1()
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    T.to_compute(model, cfg)
+    layers = list(model.layers)
+    names = [n for n, _ in layers[0].named_parameters()]
+    stacked = {n: torch.stack([dict(lp.named_parameters())[n].detach()
+                               for lp in layers]) for n in names}
+
+    class _Layer(nn.Module):
+        def __init__(self, layer):
+            super().__init__()
+            self.layer = layer
+
+        def forward(self, h):
+            return T._mamba_layer_apply(self.layer, h, cfg)[0]
+    one = _Layer(layers[0])
+
+    def layer_apply(p, h):
+        return torch.func.functional_call(
+            one, {f"layer.{k}": v for k, v in p.items()}, (h,))
+
+    def serial(h):
+        for lp in layers:
+            h = T._mamba_layer_apply(lp, h, cfg)[0]
+        return h
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    with torch.no_grad():
+        def pipe():
+            return pipeline_forward(stacked, x, layer_apply,
+                                    n_microbatches=M)
+        got = pipe()
+        want_mb = torch.cat([serial(c) for c in x.chunk(M)])
+        want = serial(x)
+        same = bool(torch.equal(got, want_mb))
+        check(same, "(c) the pipeline is not the microbatch stack's bits")
+        err, rel = check_close(got, want, "(c) pipeline against the whole "
+                               "batch", **MULTI_C_TOL)
+        pipe_ms = time_ms(pipe)
+        serial_ms = time_ms(lambda: serial(x))
+        mb_ms = time_ms(lambda: [serial(c) for c in x.chunk(M)])
+    print(f"[multi] (c) {cfg.name}, {len(layers)} layers, d "
+          f"{cfg.d_model}, {cfg.dtype}, B {B} × S {S}: pipeline_forward at "
+          f"{M} microbatches ({dist_backend()}, world size 1, {M} ticks) "
+          f"bit-equal to the serial stack microbatch by microbatch; against "
+          f"the whole-batch stack max abs err {err!r}, relative RMS {rel!r} "
+          f"(held to {MULTI_C_TOL})")
+    print(f"[multi] (c) pipeline {pipe_ms!r} ms, serial whole batch "
+          f"{serial_ms!r} ms, serial by microbatch {mb_ms!r} ms (median of "
+          f"{REPS}) on {card}")
+    del model, stacked
+    return {"c_pipe_ms": pipe_ms, "c_serial_ms": serial_ms,
+            "c_serial_mb_ms": mb_ms, "c_max_abs_err": err}
+
+
+def _env_src() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def one_card_trace(dev: str = "cuda") -> dict:
+    """29 (d)'s one-card cell traced by the dry run: ``MULTI``'s Zamba2
+    train step at B d_batch × S d_seq, grad_accum 1 (as ``Trainer.run``),
+    on a (1, 1) fake mesh; the counts and the trace's wall seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import destroy_fake_world, make_mesh
+    cfg = dataclasses.replace(get_config(MULTI["b_arch"]), grad_accum=1)
+    spec = ShapeSpec("one_card", MULTI["d_seq"], MULTI["d_batch"], "train")
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev, fake=True)
+    try:
+        rec = dryrun.trace_cell(cfg, spec, mesh, torch.device(dev))
+    finally:
+        destroy_fake_world()
+    rec.pop("largest")
+    return {**rec, "colls": len(rec["colls"]),
+            "trace_s": time.perf_counter() - t0}
+
+
+def start_multi_background() -> dict:
+    """29 (d)'s dry runs, started in fresh processes before phase 27 so
+    that their host work (DTensor dispatch on fake tensors, one core
+    each) overlaps phases 27 and 28: the smoke cells, the production cell and
+    the one-card cell.  Each writes its output to files in its own
+    temporary directory, and a thread notes when it exits.
+    ``run_multi`` collects them."""
+    import tempfile
+    import threading
+    arch, shape = MULTI["d_prod"]
+    jobs = {"smoke": ["-m", "repro_torch.launch.dryrun", "--smoke",
+                      "--arch", "mamba2-780m", "--shape", "long_500k",
+                      "--mesh", "both"],
+            "production": ["-m", "repro_torch.launch.dryrun", "--arch",
+                           arch, "--shape", shape, "--mesh", "single"],
+            "one_card": ["-c", "import chip_smoke as c, json; "
+                         "print(json.dumps(c.one_card_trace()))"]}
+    bg = {}
+    for name, args in jobs.items():
+        out = Path(tempfile.mkdtemp(prefix=f"chip_smoke_dryrun_{name}_"))
+        if args[0] == "-m":
+            args = [*args, "--out", str(out / "records")]
+        with open(out / "stdout", "w") as so, open(out / "stderr", "w") as se:
+            proc = subprocess.Popen([sys.executable, *args], stdout=so,
+                                    stderr=se, text=True, env=_env_src(),
+                                    cwd=ROOT)
+        job = {"proc": proc, "out": out, "t0": time.perf_counter(),
+               "args": args}
+        threading.Thread(target=lambda j=job: j.update(
+            rc=j["proc"].wait(), t1=time.perf_counter()), daemon=True
+        ).start()
+        bg[name] = job
+    return bg
+
+
+def _collect(bg: dict, name: str, timeout: float = 900):
+    """(stdout, wall s from start to exit, records) of a background job;
+    it must exit 0 (else its records' errors and its stderr are
+    shown)."""
+    import shutil
+    job = bg.pop(name)
+    proc, out = job["proc"], job["out"]
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    time.sleep(0.01)                    # the waiter thread's timestamp
+    wall = job.get("t1", time.perf_counter()) - job["t0"]
+    stdout = (out / "stdout").read_text()
+    stderr = (out / "stderr").read_text()
+    recs = [json.loads(p.read_text())
+            for p in sorted((out / "records").glob("*.json"))]
+    shutil.rmtree(out, ignore_errors=True)
+    errors = [{k: r.get(k) for k in ("arch", "shape", "mesh", "error",
+                                      "first_failing_op", "trace")}
+              for r in recs if r.get("status") == "error"]
+    check(proc.returncode == 0, f"(d) {name}: {' '.join(job['args'])} "
+          f"exited {proc.returncode}:\n{stdout[-2000:]}\n"
+          f"{json.dumps(errors)[-6000:]}\n{stderr[-2000:]}")
+    return stdout, wall, recs
+
+
+def stop_multi_background(bg: dict) -> None:
+    import shutil
+    for job in bg.values():
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+        shutil.rmtree(job["out"], ignore_errors=True)
+    bg.clear()
+
+
+def print_dryrun_records(recs, tag: str, card: str) -> None:
+    for rec in recs:
+        check(rec["status"] == "ok" and rec["device"] == "cuda",
+              f"{tag} {rec['arch']} {rec['shape']} {rec['mesh']}: {rec}")
+        r, mem = rec["roofline"], rec["memory"]
+        print(f"{tag} {rec['arch']} {rec['shape']} {rec['mesh']} "
+              f"{rec['mesh_shape']}: peak_estimate {mem['peak_estimate']} "
+              f"B, flops_per_device {rec['cost']['flops_per_device']!r}, "
+              f"link bytes {rec['collectives']['link_bytes_per_device']!r}"
+              f", {rec['collectives']['by_op']}, dominant {r['dominant']}, "
+              f"trace {rec['trace_s']} s, reshards {rec['reshards']}")
+
+
+def multi_dryrun(bg: dict, card: str,
+                 measured_peak_gb: float | None) -> dict:
+    """29 (d): the background dry runs' records, and the one-card cell
+    against a ``FlopCounterMode`` count of the real step on the card and
+    beside phase 28 (a)'s measured peak."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S_
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    out = {}
+    _, wall, recs = _collect(bg, "smoke")
+    check(len(recs) == 2 and {r["mesh"] for r in recs} == {"single",
+                                                          "multi"},
+          f"(d) smoke records: {recs}")
+    print_dryrun_records(recs, "[multi] (d) smoke", card)
+    for rec in recs:
+        check(rec["n_devices"] == 16 and rec["memory"]["peak_estimate"] > 0
+              and rec["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                                  "collective_s"),
+              f"(d) smoke criterion: {rec}")
+    print(f"[multi] (d) smoke: exit 0, wall {wall!r} s on {card}")
+    out["d_smoke_wall_s"] = wall
+    _, wall, recs = _collect(bg, "production")
+    print_dryrun_records(recs, "[multi] (d) production", card)
+    check(len(recs) == 1 and recs[0]["n_devices"] == 256,
+          f"(d) production records: {recs}")
+    print(f"[multi] (d) production cell: exit 0, wall {wall!r} s (its "
+          f"trace {recs[0]['trace_s']} s, then the one-unit trace) on "
+          f"{card}")
+    out.update(d_prod_wall_s=wall,
+               d_prod_peak=recs[0]["memory"]["peak_estimate"])
+    stdout, wall, _ = _collect(bg, "one_card")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    cfg = dataclasses.replace(get_config(MULTI["b_arch"]), grad_accum=1)
+    B, S, dev = MULTI["d_batch"], MULTI["d_seq"], "cuda"
+    model = T.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = adamw_init(dict(model.named_parameters()))
+    rng = np.random.default_rng(30)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, S + 1)).astype(np.int32)).to(dev)}
+    counter = FlopCounterMode(display=False)
+    with counter:
+        S_.make_train_step(cfg, AdamWConfig())(model, opt, batch)
+    real_flops = counter.get_total_flops()
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    peak_gb = rec["peak_estimate"] / 1e9
+    print(f"[multi] (d) one-card cell {cfg.name} train B {B} × S {S}, "
+          f"grad_accum {cfg.grad_accum}, (1, 1) mesh: flops_per_device "
+          f"{rec['flops']!r}, FlopCounterMode on the real step "
+          f"{real_flops!r}; peak_estimate {peak_gb!r} GB (args "
+          f"{rec['argument_bytes'] / 1e9!r}, temp {rec['temp_bytes'] / 1e9!r}"
+          f", out {rec['output_bytes'] / 1e9!r}, alias "
+          f"{rec['alias_bytes'] / 1e9!r}); trace {rec['trace_s']!r} s, "
+          f"process {wall!r} s on {card}")
+    check(rec["flops"] == real_flops, f"(d) the dry run counts "
+          f"{rec['flops']} FLOPs, the real step {real_flops}")
+    out.update(d_one_flops=rec["flops"], d_one_peak_gb=peak_gb,
+               d_one_trace_s=rec["trace_s"])
+    if measured_peak_gb is not None:
+        ratio = peak_gb / measured_peak_gb
+        lo, hi = MULTI_PEAK_RATIO
+        print(f"[multi] (d) peak_estimate / phase 28 (a)'s "
+              f"max_memory_allocated {measured_peak_gb!r} GB = {ratio!r} "
+              f"(held to [{lo}, {hi}]) on {card}")
+        check(lo <= ratio <= hi, f"(d) peak ratio {ratio} outside "
+              f"[{lo}, {hi}]")
+        out["d_peak_ratio"] = ratio
+    return out
+
+
+def run_multi(card: str, measured_peak_gb: float | None,
+              bg: dict) -> dict:
+    """Phase 29: the multi-device modules and the quickstart twin on the
+    card (``MULTI``), (a)-(d); ``bg``: ``start_multi_background``'s
+    jobs."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+
+    spec = MULTI
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    try:
+        numbers = multi_quickstart(card)
+        try:
+            cfg = dataclasses.replace(get_config(spec["b_arch"]),
+                                      dtype="float32")
+            numbers.update(multi_partition(cfg, spec["b_prompt"],
+                                           spec["b_steps"], card))
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(get_config(spec["c_arch"]),
+                                      dtype="bfloat16")
+            numbers.update(multi_pipeline(cfg, spec["c_batch"],
+                                          spec["c_seq"], spec["c_micro"],
+                                          card))
+        finally:
+            _end_world1()
+        torch.cuda.empty_cache()
+        numbers.update(multi_dryrun(bg, card, measured_peak_gb))
+    finally:
+        stop_multi_background(bg)
+    print(f"[multi] phase 29 wall {time.perf_counter() - t_phase!r} s "
+          f"(after phase 28; its dry runs started before phase 27)")
+    return numbers
+
+
+def overlap_check(card: str) -> int:
+    """``chip_smoke.py --overlap-check``: phases 27 and 28 four times in
+    one process, alone, beside, beside, alone, where "beside" runs them
+    as ``main`` does, with phase 29's dry runs started just before and
+    stopped just after.  Prints each pass's times (the phases' ``_ms``
+    and ``_s`` numbers and their wall) and, for each, the mean beside
+    over the mean alone."""
+    import torch
+    rows = []
+    for how in ("alone", "beside", "beside", "alone"):
+        bg = start_multi_background() if how == "beside" else {}
+        t0 = time.perf_counter()
+        try:
+            got = {f"27_{k}": v for k, v in run_lm27(card).items()}
+            got.update({f"28_{k}": v for k, v in
+                        run_train(card)["numbers"].items()})
+        finally:
+            stop_multi_background(bg)
+        got = {k: v for k, v in got.items()
+               if k.endswith(("_ms", "_s")) and isinstance(v, float)}
+        got["wall_s"] = time.perf_counter() - t0
+        print(f"[overlap] {how}: {json.dumps(got)} on {card}", flush=True)
+        rows.append((how, got))
+        torch.cuda.empty_cache()
+    for key in rows[0][1]:
+        alone, beside = (statistics.mean(t[key] for h, t in rows if h == w)
+                         for w in ("alone", "beside"))
+        print(f"[overlap] {key}: alone {alone!r}, beside {beside!r}, "
+              f"beside / alone {beside / alone!r}")
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3700,6 +4248,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
+    if sys.argv[1:] == ["--overlap-check"]:
+        return overlap_check(card)
 
     expect = {"fig9": FIG9_K, "koln": KOLN_K, "fig9_d2": FIG9_D2_K}
     out = run("cuda", FIG9, 541_222, TRUNC, expect)
@@ -3713,8 +4263,14 @@ def main() -> int:
     out7 = run_slice7("cuda", FIG9, 541_222, DYN, expect)
     run_audit(card)
     run_lm(card)
-    run_lm27(card)
-    out8 = run_train(card)
+    bg = start_multi_background()
+    try:
+        run_lm27(card)
+        out8 = run_train(card)
+    except BaseException:
+        stop_multi_background(bg)
+        raise
+    run_multi(card, out8["numbers"]["a_peak_gb"], bg)
     for kname, count in {**out["launches"], **out2["launches"],
                          **out3["launches"], **out4["launches"],
                          **out5["launches"], **out6["launches"],

@@ -27,6 +27,7 @@ from torch import nn
 from .config import ModelConfig
 from .layers import Params, apply_rope, linear, linear_init, \
     rms_headnorm, rmsnorm, rmsnorm_init, rope_angles
+from .sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +62,7 @@ def chunked_sdpa(q, k, v, q_pos, kv_valid_upto, *, causal: bool = True,
     for c0 in range(0, Sq, cq):
         qc, pc = q[:, c0:c0 + cq], q_pos[c0:c0 + cq]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(), kf) * scale
+        s = constrain(s, "dp", "tp", None, None, None)
         ok = ok_kv[None, :]
         if causal:
             ok = ok & (kv_pos[None, :] <= pc[:, None])
@@ -154,6 +156,9 @@ def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions,
     q = linear(p.wq, x, dt).reshape(B, S, cfg.n_heads, dh)
     k = linear(p.wk, x, dt).reshape(B, S, cfg.n_kv_heads, dh)
     v = linear(p.wv, x, dt).reshape(B, S, cfg.n_kv_heads, dh)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
     if cfg.qk_norm:
         q, k = rms_headnorm(q), rms_headnorm(k)
     cos, sin = rope_angles(positions, dh, cfg.rope_theta)
@@ -183,7 +188,8 @@ def gqa_apply(p: GQA, x, cfg: ModelConfig, *, positions,
         out = chunked_sdpa(qg, k_all, v_all, positions, valid,
                            causal=causal, window=window, sink=sink,
                            q_chunk=cfg.q_chunk)
-    return linear(p.wo, out.reshape(B, S, -1), dt), cache
+    return constrain(linear(p.wo, out.reshape(B, S, -1), dt),
+                     "dp", None, None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +295,8 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions,
         pr = torch.softmax(scores.masked_fill(~ok, float("-inf")), dim=-1)
         ctx = torch.einsum("bhqk,bkl->bqhl", pr, ckv_f).to(dt)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, w_uv)
-        return linear(p.wo, out.reshape(B, S, nh * dv), dt), cache
+        y = linear(p.wo, out.reshape(B, S, nh * dv), dt)
+        return constrain(y, "dp", None, None), cache
 
     # expand the latents to per-head K/V (prefill, or mla_absorb=False)
     Skv = ckv_all.shape[1]
@@ -298,10 +305,12 @@ def mla_apply(p: MLA, x, cfg: ModelConfig, *, positions,
     kk = torch.cat([k_nope, krope_all[:, :, None, :].expand(B, Skv, nh, dr)],
                    dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, nh, 1, dn + dr)
+    qq = constrain(qq, "dp", None, "tp", None, None)
     out = chunked_sdpa(qq, kk, vv, positions, valid, causal=causal,
                        window=window, sink=sink, q_chunk=cfg.q_chunk,
                        scale=(dn + dr) ** -0.5)
-    return linear(p.wo, out.reshape(B, S, nh * dv), dt), cache
+    y = linear(p.wo, out.reshape(B, S, nh * dv), dt)
+    return constrain(y, "dp", None, None), cache
 
 
 # ---------------------------------------------------------------------------

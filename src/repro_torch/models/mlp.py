@@ -1,15 +1,11 @@
-"""Dense SwiGLU MLP sublayer (the JAX package's ``models/mlp.py``).
-
-The reference pins activation shardings with ``constrain`` (its
-``models/sharding.py``); on one card those are no-ops, so the port has
-no sharding module and calls nothing in their place.
-"""
+"""Dense SwiGLU MLP sublayer (the JAX package's ``models/mlp.py``)."""
 from __future__ import annotations
 
 from torch import nn
 
 from .config import ModelConfig
 from .layers import linear, linear_init, swiglu
+from .sharding import constrain
 
 
 class MLP(nn.Module):
@@ -33,4 +29,5 @@ def mlp_init(cfg: ModelConfig, d_ff: int | None = None, *, generator=None,
 def mlp_apply(p: MLP, x, dtype=None):
     dt = dtype or x.dtype
     h = swiglu(linear(p.w_gate, x, dt), linear(p.w_up, x, dt))
-    return linear(p.w_down, h, dt)
+    h = constrain(h, "dp", None, "tp")
+    return constrain(linear(p.w_down, h, dt), "dp", None, None)

@@ -10,8 +10,10 @@ from that slot (it contributes exactly 0; the residual stream carries
 it).  The slots are summed one after another in the model dtype.
 
 The reference computes each slot with one-hot dispatch and combine
-einsums over every expert's (G, E, C, d) buffer.  The port computes the
-same function in index form: the kept (token, slot) assignments of all
+einsums over every expert's (G, E, C, d) buffer.  The port has that
+form too (under ``use_form("dense")``), whose shapes depend on no routing decision,
+so a trace on fake tensors (``launch.dryrun``) can follow it; serving
+and training use the index form: the kept (token, slot) assignments of all
 slots are sorted by expert, each expert that received tokens runs its
 SwiGLU on its rows (one host read of the per-expert counts a call), and
 the rows go back to their (token, slot) places.  So a decode step reads
@@ -31,6 +33,7 @@ business).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -40,6 +43,23 @@ from .config import ModelConfig
 from .layers import Params, linear, linear_init, master, swiglu, \
     truncated_normal
 from .mlp import mlp_apply, mlp_init
+from .sharding import constrain
+
+FORMS = ("index", "dense")
+_FORM = ["index"]
+
+
+@contextlib.contextmanager
+def use_form(form: str):
+    """Make ``form`` ("index" or "dense") the form that ``moe_apply``
+    computes in, for the block."""
+    if form not in FORMS:
+        raise ValueError(f"MoE form {form!r} is not one of {FORMS}")
+    _FORM.append(form)
+    try:
+        yield
+    finally:
+        _FORM.pop()
 
 
 class MoE(Params):
@@ -89,7 +109,8 @@ def _route(p: MoE, xg, cfg: ModelConfig):
     """Router: (vals (G,gt,k) renormalised, idx (G,gt,k), aux)."""
     E, k = cfg.n_experts, cfg.top_k
     # the product in the model dtype, upcast after (the reference's)
-    logits = linear(p.router, xg, xg.dtype).float()
+    logits = constrain(linear(p.router, xg, xg.dtype).float(),
+                       "dp", None, None)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, idx = vals[..., :k], idx[..., :k]
@@ -132,20 +153,54 @@ def _experts(p: MoE, x, token, expert, dt):
     return y
 
 
+def _dense_slots(p: MoE, xg, vals, idx, E: int, C: int, dt):
+    """The reference's dispatch: per slot, (G, gt, E, C) one-hot dispatch
+    and combine tensors around the experts' batched SwiGLU over every
+    expert's (G, E, C, d) buffer; the slots summed in ``dt``."""
+    w_gate, w_up, w_down = (p.cast(n, dt) for n in ("w_gate", "w_up",
+                                                    "w_down"))
+    out = torch.zeros_like(xg)
+    for slot in range(idx.shape[-1]):
+        e_onehot = F.one_hot(idx[..., slot], E)               # (G, gt, E)
+        rank = torch.cumsum(e_onehot, dim=1) - 1
+        my_rank = (rank * e_onehot).sum(dim=-1)               # (G, gt)
+        keep = my_rank < C
+        # the rank C (dropped) has no column: an all-zero one-hot row
+        pos = F.one_hot(torch.where(keep, my_rank, C), C + 1)[..., :C]
+        disp = e_onehot.to(dt)[..., None] * pos.to(dt)[:, :, None, :]
+        xe = torch.einsum("gtec,gtd->gecd", disp.float(),
+                          xg.float()).to(dt)
+        xe = constrain(xe, "dp", "tp", None, None)
+        h = swiglu(torch.einsum("gecd,edf->gecf", xe, w_gate),
+                   torch.einsum("gecd,edf->gecf", xe, w_up))
+        ye = constrain(torch.einsum("gecf,efd->gecd", h, w_down),
+                       "dp", "tp", None, None)
+        comb = disp * (vals[..., slot] * keep).to(dt)[..., None, None]
+        out = out + torch.einsum("gtec,gecd->gtd", comb.float(),
+                                 ye.float()).to(dt)
+    return out
+
+
 def moe_apply(p: MoE, x, cfg: ModelConfig, *, group_tokens: int = 1024):
-    """x: (B, S, d) → (y, aux loss float32)."""
+    """x: (B, S, d) → (y, aux loss float32), in the form ``use_form`` set
+    ("index" outside any; "dense" is the same function)."""
     B, S, d = x.shape
     dt = x.dtype
     E, k = cfg.n_experts, cfg.top_k
     gt = group_size(S, group_tokens)
     G = B * (S // gt)
-    xg = x.reshape(G, gt, d)
+    xg = constrain(x.reshape(G, gt, d), "dp", None, None)
     C = max(4, math.ceil(gt / E * cfg.capacity_factor))
 
     vals, idx, aux = _route(p, xg, cfg)
     keep = _keep(idx, E, C)
     if p.route_log is not None:
         p.route_log.append({"idx": idx, "keep": keep})
+    if _FORM[-1] == "dense":
+        y = _dense_slots(p, xg, vals, idx, E, C, dt).reshape(B, S, d)
+        if p.shared is not None:
+            y = y + mlp_apply(p.shared, x, dt)
+        return y, aux
     T = G * gt
     expert = torch.where(keep, idx, E).reshape(T * k)
     token = torch.arange(T, device=x.device).repeat_interleave(k)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import Params, RMSNorm, linear, linear_init, master, \
     rmsnorm_init, truncated_normal
+from .sharding import constrain
 
 
 class Mamba2(Params):
@@ -177,7 +178,7 @@ def mamba2_apply(p: Mamba2, x, cfg: ModelConfig, *,
 
     proj = linear(p.in_proj, x, dt_)
     z, xi, Bm, Cm, dt_raw = torch.split(proj, [di, di, ns, ns, nh], dim=-1)
-    xbc = torch.cat([xi, Bm, Cm], dim=-1)
+    xbc = constrain(torch.cat([xi, Bm, Cm], dim=-1), "dp", None, "tp")
 
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p.cast("conv_w", dt_),
@@ -190,7 +191,7 @@ def mamba2_apply(p: Mamba2, x, cfg: ModelConfig, *,
     dt = F.softplus(dt_raw.float() + p.dt_bias)              # (B,S,nh)
     A = -torch.exp(p.A_log)                                  # (nh,)
     a = dt * A                                               # log decay
-    xh = xi.reshape(B, S, nh, hd)
+    xh = constrain(xi.reshape(B, S, nh, hd), "dp", None, "tp", None)
     xdt = xh.float() * dt[..., None]
 
     if cache is not None and S == 1:
@@ -215,4 +216,5 @@ def mamba2_apply(p: Mamba2, x, cfg: ModelConfig, *,
     gf = g.float()
     var = torch.mean(torch.square(gf), dim=-1, keepdim=True)
     g = (gf * torch.rsqrt(var + cfg.norm_eps) * p.norm.scale).to(dt_)
-    return linear(p.out_proj, g, dt_), new_cache
+    return constrain(linear(p.out_proj, g, dt_), "dp", None, None), \
+        new_cache

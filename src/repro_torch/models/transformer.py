@@ -53,6 +53,7 @@ from .layers import embed, embed_init, linear, linear_init, master, \
     rmsnorm, rmsnorm_init, truncated_normal
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
+from .sharding import constrain
 from .ssm import mamba2_apply, mamba2_cache_init, mamba2_init
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -85,6 +86,7 @@ class DenseLayer(nn.Module):
 
 def _dense_layer_apply(p: DenseLayer, x, cfg, *, positions, cache=None,
                        cur_len=0, causal=True, **sparse):
+    x = constrain(x, "dp", "tpseq", None)
     a, cache = attn_apply(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
                           positions=positions, cache=cache, cur_len=cur_len,
                           causal=causal, **sparse)
@@ -105,6 +107,7 @@ class MoELayer(nn.Module):
 
 def _moe_layer_apply(p: MoELayer, x, cfg, *, positions, cache=None,
                      cur_len=0, causal=True, **sparse):
+    x = constrain(x, "dp", "tpseq", None)
     a, cache = attn_apply(p.attn, rmsnorm(p.ln1, x, cfg.norm_eps), cfg,
                           positions=positions, cache=cache, cur_len=cur_len,
                           causal=causal, **sparse)
@@ -121,6 +124,7 @@ class MambaLayer(nn.Module):
 
 
 def _mamba_layer_apply(p: MambaLayer, x, cfg, *, cache=None):
+    x = constrain(x, "dp", "tpseq", None)
     y, cache = mamba2_apply(p.mixer, rmsnorm(p.ln, x, cfg.norm_eps), cfg,
                             cache=cache)
     return x + y, cache
@@ -283,7 +287,7 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
     """
     dt = _dtype(cfg)
     S = tokens.shape[1]
-    x = embed(params.embed, tokens, dt)
+    x = constrain(embed(params.embed, tokens, dt), "dp", None, None)
     positions = cur_len + torch.arange(S, device=x.device)
     sparse = _sparse_kw(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -354,8 +358,10 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
 def _project_logits(params: LM, x, cfg: ModelConfig):
     """Logits in float32, tied or not."""
     if cfg.tie_embeddings:
-        return x.float() @ params.embed.table.T
-    return linear(params.lm_head, x, torch.float32)
+        logits = x.float() @ params.embed.table.T
+    else:
+        logits = linear(params.lm_head, x, torch.float32)
+    return constrain(logits, "dp", None, "tp")
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Training runtime of the port (the JAX package's ``runtime/``)."""
+"""Training runtime of the port (the JAX package's ``runtime/``): the
+fault-tolerant ``trainer`` and the GPipe ``pipeline``."""

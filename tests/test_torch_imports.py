@@ -18,7 +18,7 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -57,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.lm_serve, repro_torch.launch.serve, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.optim.compress, repro_torch.data.pipeline, "
-            "repro_torch.checkpoint.sharded, repro_torch.runtime.trainer\n"
+            "repro_torch.checkpoint.sharded, repro_torch.runtime.trainer, "
+            "repro_torch.runtime.pipeline, repro_torch.launch.mesh, "
+            "repro_torch.launch.partition, repro_torch.launch.dryrun, "
+            "repro_torch.launch.probe_buffers, "
+            "repro_torch.models.sharding\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -165,3 +165,42 @@ def test_dropped_assignments_contribute_zero():
                                        (1031, 1024, 1), (1, 1024, 1)])
 def test_group_size_is_the_reference_divisor_rule(S, gt, want):
     assert PM.group_size(S, gt) == want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CASES)
+def test_dense_form_matches_index_form_and_reference(case, dtype):
+    # the reference's one-hot capacity dispatch (``form="dense"``, what
+    # the dry run traces) against the index form and the reference, at
+    # the same tolerances; the dense form logs the same routing
+    ref_cfg, cfg, tree, x, gt = _setup(case)
+    jd, td, tol = DTYPES[dtype]
+    want, want_aux = RM.moe_apply(tree, jnp.asarray(x).astype(jd), ref_cfg,
+                                  group_tokens=gt)
+    p = port_moe(cfg, tree)
+    xt = torch.from_numpy(x).to(td)
+    p.route_log = []
+    idx_y, idx_aux = PM.moe_apply(p, xt, cfg, group_tokens=gt)
+    with PM.use_form("dense"):
+        dense_y, dense_aux = PM.moe_apply(p, xt, cfg, group_tokens=gt)
+    assert dense_y.dtype == td and dense_y.shape == x.shape
+    for got in (dense_y, idx_y):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+    np.testing.assert_allclose(dense_y.float().numpy(),
+                               idx_y.float().numpy(), rtol=tol, atol=tol)
+    assert float(dense_aux) == float(idx_aux)
+    np.testing.assert_allclose(float(dense_aux), float(want_aux), rtol=1e-6,
+                               atol=1e-6)
+    index_log, dense_log = p.route_log
+    for k in ("idx", "keep"):
+        assert torch.equal(index_log[k], dense_log[k])
+
+
+def test_moe_form_is_checked():
+    _, cfg, tree, x, gt = _setup("shared")
+    p = port_moe(cfg, tree)
+    with pytest.raises(ValueError, match="MoE form"):
+        with PM.use_form("sparse"):
+            PM.moe_apply(p, torch.from_numpy(x), cfg)
