@@ -240,10 +240,15 @@ or the JAX package.  Phases, each of which must pass:
             (e) that checkpoint restored at 3 shards with K2's counter
             zeroed: the tree bit for bit the saved one, K2 launched once
             a leaf, every leaf's ``_reshard_plan`` equal to the plain
-            pass 2's (``device="cpu"``); (f) ``python -m
-            repro_torch.launch.train --arch zamba2-2.7b --smoke`` (30
-            steps) in a fresh process, its last logged loss below its
-            first.  Its kernel: K2 on the
+            pass 2's (``device="cpu"``); (f) one shared-attention
+            call alone at (a)'s width, bf16, B 2 × S 4,096 (32 heads,
+            dh 80, window 4,096, sink 128): forward and backward
+            through ``chunked_sdpa`` (a checkpoint a query chunk) and
+            through the un-checkpointed loop of its chunk function, the
+            gradients of q, k and v bit-equal, the peak and time of
+            each; (g) ``python -m repro_torch.launch.train --arch
+            zamba2-2.7b --smoke`` (30 steps) in a fresh process, its
+            last logged loss below its first.  Its kernel: K2 on the
             restore's reshard plans.
 29. multi   the LM stack's multi-device modules (``launch/mesh``,
             ``launch/partition``, ``models/sharding``,
@@ -268,7 +273,9 @@ or the JAX package.  Phases, each of which must pass:
             its host work overlaps phases 27 and 28: ``--smoke`` (mamba2-780m,
             ``long_500k``, both meshes) on cuda fake tensors, the
             production cell zamba2-2.7b ``train_4k`` on the 256-rank mesh
-            with its wall time, and the one-card cell (Zamba2 train, B 2
+            at 12 of its 54 layers (two groups: the one-unit trace's
+            difference still gives a layer's cost) with its wall time,
+            and the one-card cell (Zamba2 train, B 2
             × S 4,096, ``grad_accum`` 1, a (1, 1) mesh), whose
             ``flops_per_device`` must equal ``FlopCounterMode`` on the
             real step and whose ``peak_estimate`` over phase 28 (a)'s
@@ -379,7 +386,9 @@ LM_MLA_TOL = 1e-3
 # at the config's grad_accum 4 with B 4; (c) one Mamba group (6 layers and
 # the shared block) in float32 at B 1 × S 256, card against CPU; (d) the
 # restart drill on that model at B 1 × S 512; (e) its 2-shard checkpoint
-# restored at 3 shards; (f) the launcher
+# restored at 3 shards; (f) one shared-attention call at (a)'s B and S,
+# through chunked_sdpa and through the un-checkpointed loop; (g) the
+# launcher
 TRAIN = dict(arch="zamba2_2_7b", seq=4096, a_batch=2, a_steps=3,
              b_batch=4, c_layers=6, c_seq=256, d_seq=512, d_steps=4,
              d_every=2, d_shards=2, d_fail=3, e_shards=3,
@@ -405,11 +414,15 @@ TRAIN_C_TOL = dict(loss=1e-4, grad_norm=1e-3, update=1e-2)
 # full width and depth in bf16, B c_batch × S c_seq through
 # pipeline_forward at c_micro microbatches over NCCL at world size 1;
 # (d) the dry run: --smoke on cuda fake tensors, the production cell
-# d_prod on the 256-rank single mesh, and the one-card cell (Zamba2 train
-# at B d_batch × S d_seq on a (1, 1) mesh, grad_accum 1 as Trainer.run)
+# d_prod on the 256-rank single mesh at d_prod_layers (its depth cut so
+# that the script ends well inside its time limit: the per-chunk remat
+# made the 54-layer trace ~600 s of host time on the card's host), and
+# the one-card cell (Zamba2 train at B d_batch × S d_seq on a (1, 1)
+# mesh, grad_accum 1 as Trainer.run)
 MULTI = dict(b_arch="zamba2_2_7b", b_prompt=512, b_steps=8,
              c_arch="mamba2_780m", c_batch=8, c_seq=2048, c_micro=4,
-             d_prod=("zamba2-2.7b", "train_4k"), d_batch=2, d_seq=4096)
+             d_prod=("zamba2-2.7b", "train_4k"), d_prod_layers=12,
+             d_batch=2, d_seq=4096)
 # (c) the pipeline against the whole-batch stack, bf16: the microbatch
 # stack is its bits (checked equal); the whole batch's products take
 # other shapes, |got - want| <= atol + rtol·|want| and the relative RMS
@@ -3438,9 +3451,72 @@ def train_metrics(m) -> dict:
     return vals
 
 
+def train_shared_attention(cfg, B: int, S: int, card: str) -> dict:
+    """28 (f): one shared-attention call of ``cfg`` alone (its heads, head
+    width, ``q_chunk``, window and sink), bf16, B × S, q, k and v drawn
+    from a seeded ``torch.Generator``: its forward and backward through
+    ``chunked_sdpa`` (a checkpoint a query chunk) and through the
+    un-checkpointed loop of the same chunk function (``attention``'s
+    ``remat_call`` replaced by a direct call for that pass).
+    The gradients of q, k and v must be bit-equal; the peak of each
+    (``max_memory_allocated`` over what was allocated before) and its
+    CUDA-event time are printed."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import remat_call
+    from repro_torch.models.transformer import _sparse_kw
+    dev = "cuda"
+    gen = torch.Generator(dev).manual_seed(28)
+    H, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    q0, k0, v0 = draw(B, S, H, G, dh), draw(B, S, H, dh), draw(B, S, H, dh)
+    cot = draw(B, S, H, G, dh)
+    pos = torch.arange(S, device=dev)
+    kw = dict(q_chunk=cfg.q_chunk, **_sparse_kw(cfg))
+
+    def fwd_bwd(remat: bool):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        if not remat:
+            A.remat_call = lambda fn, *args: fn(*args)
+        try:
+            out = A.chunked_sdpa(q, k, v, pos, S, **kw)
+            return torch.autograd.grad(out, (q, k, v), grad_outputs=cot)
+        finally:
+            A.remat_call = remat_call
+
+    grads, out = {}, {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads[remat] = fwd_bwd(remat)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = time_ms(lambda: fwd_bwd(remat))
+        out[remat] = {"peak_gb": peak, "ms": ms}
+    same = all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[True])
+    print(f"[train] (f) {cfg.name}'s shared attention alone, bf16, B {B} × "
+          f"S {S}, {cfg.n_heads} heads, dh {dh}, q_chunk {cfg.q_chunk}, "
+          f"{kw}: forward + backward through chunked_sdpa (a checkpoint a "
+          f"query chunk) {out[True]['ms']!r} ms, peak "
+          f"{out[True]['peak_gb']!r} GB; the un-checkpointed loop "
+          f"{out[False]['ms']!r} ms, peak {out[False]['peak_gb']!r} GB; "
+          f"grads of q, k, v bit-equal: {same} on {card}")
+    check(finite, "(f) non-finite gradients")
+    check(same, "(f) the checkpointed gradients differ from the loop's")
+    return {"f_remat_ms": out[True]["ms"], "f_loop_ms": out[False]["ms"],
+            "f_remat_peak_gb": out[True]["peak_gb"],
+            "f_loop_peak_gb": out[False]["peak_gb"]}
+
+
 def run_train(card: str) -> dict:
     """Phase 28: the LM training path of Zamba2-2.7B (``TRAIN``),
-    (a)-(f)."""
+    (a)-(g)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3698,7 +3774,14 @@ def run_train(card: str) -> dict:
           f"{times['k2_restore_plain']!r} ms, bound {k2_bound[0]!r} ms "
           f"({k2_bound[1]}) on {card}")
 
-    # -- (f) the launcher -----------------------------------------------------
+    # -- (f) one shared-attention call: per-chunk remat against the loop -----
+    t_part = time.perf_counter()
+    numbers.update(train_shared_attention(base, B, seq, card))
+    torch.cuda.empty_cache()
+    part("f", t_part)
+    t_part = time.perf_counter()
+
+    # -- (g) the launcher -----------------------------------------------------
     import os
     cli_dir = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
     cmd = [sys.executable, "-m", "repro_torch.launch.train",
@@ -3716,13 +3799,13 @@ def run_train(card: str) -> dict:
     losses = [float(x) for x in re.findall(r"^step +\d+ loss ([\d.]+) ",
                                            out.stdout, re.M)]
     for line in out.stdout.strip().splitlines():
-        print(f"[train] (f) {line}")
-    print(f"[train] (f) {' '.join(cmd[1:])}: exit 0, wall {wall!r} s on "
+        print(f"[train] (g) {line}")
+    print(f"[train] (g) {' '.join(cmd[1:])}: exit 0, wall {wall!r} s on "
           f"{card}")
     check(len(losses) >= 2 and losses[-1] < losses[0],
-          f"(f) the launcher's loss did not fall: {losses}")
-    numbers["f_wall_s"] = wall
-    part("f", t_part)
+          f"(g) the launcher's loss did not fall: {losses}")
+    numbers["g_wall_s"] = wall
+    part("g", t_part)
     print(f"[train] phase 28 wall {time.perf_counter() - t_phase!r} s")
 
     key = "twopass_emit (checkpoint restore)"
@@ -4010,7 +4093,9 @@ def start_multi_background() -> dict:
                       "--arch", "mamba2-780m", "--shape", "long_500k",
                       "--mesh", "both"],
             "production": ["-m", "repro_torch.launch.dryrun", "--arch",
-                           arch, "--shape", shape, "--mesh", "single"],
+                           arch, "--shape", shape, "--mesh", "single",
+                           "--override",
+                           f"n_layers={MULTI['d_prod_layers']}"],
             "one_card": ["-c", "import chip_smoke as c, json; "
                          "print(json.dumps(c.one_card_trace()))"]}
     bg = {}
@@ -4114,9 +4199,9 @@ def multi_dryrun(bg: dict, card: str,
     print_dryrun_records(recs, "[multi] (d) production", card)
     check(len(recs) == 1 and recs[0]["n_devices"] == 256,
           f"(d) production records: {recs}")
-    print(f"[multi] (d) production cell: exit 0, wall {wall!r} s (its "
-          f"trace {recs[0]['trace_s']} s, then the one-unit trace) on "
-          f"{card}")
+    print(f"[multi] (d) production cell at {MULTI['d_prod_layers']} "
+          f"layers: exit 0, wall {wall!r} s (its trace "
+          f"{recs[0]['trace_s']} s, then the one-unit trace) on {card}")
     out.update(d_prod_wall_s=wall,
                d_prod_peak=recs[0]["memory"]["peak_estimate"])
     stdout, wall, _ = _collect(bg, "one_card")

@@ -55,12 +55,13 @@ Dropped from the reference's record, and why:
 The step runs under ``launch.mesh.sharded``: where DTensor refuses an op
 that GSPMD would partition (a reshape that unflattens an unevenly
 sharded dim: 2 heads over a 4-way axis), the op is retried after its
-DTensor operands are redistributed to replicated over the minor mesh
-dims (what GSPMD inserts there), and the record lists each such op and
-its count under ``reshards``; constants that a model makes inside a
-call (positions, masks) take part as replicated.  A cell that still
-fails is ``status: "error"`` with its first failing op, and the exit
-code is 1.
+DTensor operands are redistributed (replicated over the minor mesh
+dims; a ``data`` or ``pod`` shard first moved to another tensor dim, so
+the training step's microbatch split keeps its batch sharded), and the
+record lists each such op and its count under ``reshards``; constants
+that a model makes inside a call (positions, masks) take part as
+replicated.  A cell that still fails is ``status: "error"`` with its
+first failing op, and the exit code is 1.
 
 Roofline constants are datasheet figures of one NVIDIA H100 SXM5 80 GB:
 989e12 dense bf16 FLOP/s, 3.35e12 B/s HBM3, and 450e9 B/s of NVLink 4 a

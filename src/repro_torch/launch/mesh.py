@@ -138,13 +138,25 @@ class Reshard(TorchDispatchMode):
     """Sees the DTensor-level ops.  An op whose sharding DTensor refuses,
     or a view that would leave a strided shard (a flatten of two dims
     sharded over two mesh dims, whose redistributions DTensor plans by a
-    graph search that takes minutes on a 3-D mesh), is retried: first
-    with its DTensor operands made contiguous (a view of a local shard
-    that a redistribution left strided), then replicated over the minor
-    mesh dims, one more dim a retry (``model`` first, then ``data``, then
-    ``pod``).  An op that DTensor has no strategy for raises, as does one
-    that no retry repairs.  ``ops`` counts the retries that ran, as
-    "op@contiguous" or "op@dims"."""
+    graph search that takes minutes on a 3-D mesh), is retried:
+
+      * with its DTensor operands made contiguous (a view of a local
+        shard that a redistribution left strided);
+      * then, for each mesh dim from the minor one (``model``, then
+        ``data``, then ``pod``), with every minor one replicated: first
+        the operands replicated over it too (``model``, the innermost,
+        has nothing inside it to move to), or for ``data`` and ``pod``
+        first kept sharded over it but on another tensor dim, a dim for
+        every operand sharded over it, the dims in order of the bytes
+        they move (the operands' local bytes that change place; the
+        first that DTensor accepts moves the fewest), and the result's
+        shard then moved to its leading dim that the mesh dims sharding
+        it divide (the batch dim that the reference's ``dp`` rule
+        shards); only then replicated over it.
+
+    An op that DTensor has no strategy for raises, as does one that no
+    retry repairs.  ``ops`` counts the retries that ran, as
+    "op@contiguous", "op@move:<mesh dim>" or "op@<replicated dims>"."""
 
     _ERRORS = (RuntimeError, ValueError, NotImplementedError,
                AssertionError)
@@ -154,7 +166,7 @@ class Reshard(TorchDispatchMode):
         self.ops: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor import DTensor
         from torch.utils._pytree import tree_flatten, tree_map
         kwargs = kwargs or {}
         if not any(issubclass(t, DTensor) for t in types):
@@ -170,26 +182,21 @@ class Reshard(TorchDispatchMode):
             # the message only: the exception's traceback holds this frame
             # (its tensors) in a cycle that only the collector breaks
             err = f"{type(e).__name__}: {e}"
-        mesh = next(x for x in tree_flatten((args, kwargs))[0]
-                    if isinstance(x, DTensor)).device_mesh
+        operands = [x for x in tree_flatten((args, kwargs))[0]
+                    if isinstance(x, DTensor)]
+        mesh = operands[0].device_mesh
         names = mesh.mesh_dim_names
 
         def contiguous(x):
             return x.contiguous() if isinstance(x, DTensor) else x
-
-        def replicated(k):
-            def rep(x):
-                if not isinstance(x, DTensor):
-                    return x
-                want = [Replicate() if i >= k else p
-                        for i, p in enumerate(x.placements)]
-                return (x if want == list(x.placements)
-                        else x.redistribute(x.device_mesh, want))
-            return rep
-        tries = [("contiguous", contiguous)] + [
-            (",".join(names[k:]), replicated(k))
-            for k in range(mesh.ndim - 1, -1, -1)]
-        for how, fix in tries:
+        tries = [("contiguous", contiguous, None)]
+        for k in range(mesh.ndim - 1, -1, -1):
+            if k < mesh.ndim - 1:
+                tries += [(f"move:{names[k]}", _placed(k + 1, k, d), k)
+                          for d in _move_dims(operands, k)]
+            tries.append((",".join(names[k:]), _placed(k, None, None),
+                          None))
+        for how, fix, moved in tries:
             try:
                 out = func(*tree_map(fix, args), **tree_map(fix, kwargs))
             except self._ERRORS as e:
@@ -198,10 +205,70 @@ class Reshard(TorchDispatchMode):
                 continue
             if _strided(out):
                 continue
+            if moved is not None:
+                out = _to_leading_dim(out, moved)
             name = f"{func}@{how}"
             self.ops[name] = self.ops.get(name, 0) + 1
             return out
         raise RuntimeError(err)
+
+
+def _placed(k: int, moved: int | None, dim: int | None):
+    """An operand's redistribution for a retry: replicated over mesh dims
+    ``k`` and on; and, given ``moved``, its shard over that mesh dim put
+    on tensor dim ``dim``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def fix(x):
+        if not isinstance(x, DTensor):
+            return x
+        want = [Replicate() if i >= k else p
+                for i, p in enumerate(x.placements)]
+        if moved is not None and isinstance(want[moved], Shard) \
+                and dim < x.ndim:
+            want[moved] = Shard(dim)
+        return (x if want == list(x.placements)
+                else x.redistribute(x.device_mesh, want))
+    return fix
+
+
+def _move_dims(operands, k: int) -> list[int]:
+    """The tensor dims to which a retry may move mesh dim ``k``'s shards,
+    cheapest first: each dim that moves a shard of some operand, by the
+    local bytes of the operands whose shard it moves."""
+    from torch.distributed.tensor import Shard
+    sharded = [x for x in operands if isinstance(x.placements[k], Shard)]
+    cost = {}
+    for d in range(max((x.ndim for x in sharded), default=0)):
+        moves = [x for x in sharded
+                 if d < x.ndim and x.placements[k].dim != d]
+        if moves:
+            cost[d] = sum(x.to_local().numel() * x.element_size()
+                          for x in moves)
+    return sorted(cost, key=lambda d: (cost[d], d))
+
+
+def _to_leading_dim(out, k: int):
+    """``out`` with its shard over mesh dim ``k`` on its leading dim whose
+    size the mesh dims sharding it, ``k`` included, divide (left where it
+    is if there is none)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(out, DTensor) or not isinstance(out.placements[k],
+                                                      Shard):
+        return out
+    mesh = out.device_mesh
+
+    def ways(j):
+        return mesh.size(k) * math.prod(
+            mesh.size(i) for i, p in enumerate(out.placements)
+            if i != k and isinstance(p, Shard) and p.dim == j)
+    lead = next((j for j, size in enumerate(out.shape)
+                 if size % ways(j) == 0), None)
+    if lead is None or lead == out.placements[k].dim:
+        return out
+    want = list(out.placements)
+    want[k] = Shard(lead)
+    return out.redistribute(out.device_mesh, want)
 
 
 def _strided(out) -> bool:

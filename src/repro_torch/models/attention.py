@@ -12,8 +12,12 @@ reference's ``preferred_element_type=float32``): the inputs are upcast
 before the product, so a bf16 product never rounds them.  Keep TF32 off
 on the card (``torch.backends.cuda.matmul.allow_tf32 = False``, the
 default) or float32 scores lose 13 bits.  The query axis is processed in
-chunks of ``q_chunk`` rows, so the live score block is (B, H, G,
-q_chunk, Skv) float32.
+chunks of ``q_chunk`` rows, each under ``remat_call`` while autograd
+records (the reference's ``jax.checkpoint`` of a chunk): a chunk keeps
+only its inputs (its q rows, and the one float32 copy of K and V that
+all chunks share), and its (B, H, G, q_chunk, Skv) float32 blocks are
+recomputed in the backward.  So one chunk's blocks are live at a time
+in the forward and in the backward alike.
 
 KV caches are dicts of preallocated tensors that the cache write fills
 in place: (B, max_len, n_kv, dh) ``k``/``v`` for GQA, (B, max_len,
@@ -21,18 +25,41 @@ kv_lora) ``ckv`` and (B, max_len, rope_head_dim) ``krope`` for MLA.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from .config import ModelConfig
 from .layers import Params, apply_rope, linear, linear_init, \
-    rms_headnorm, rmsnorm, rmsnorm_init, rope_angles
+    remat_call, rms_headnorm, rmsnorm, rmsnorm_init, rope_angles
 from .sharding import constrain
 
 
 # ---------------------------------------------------------------------------
 # chunked scaled-dot-product core
 # ---------------------------------------------------------------------------
+
+def _sdpa_chunk(qc, pc, kf, vf, kv_pos, ok_kv, *, causal: bool,
+                window: int, sink: int, scale: float, dtype):
+    """One query chunk of ``chunked_sdpa``: qc (B,cq,H,G,dh) at positions
+    pc (cq,) against all of kf, vf (K and V in float32) → (B,cq,H,G,dv)
+    in ``dtype``, V's own."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(), kf) * scale
+    s = constrain(s, "dp", "tp", None, None, None)
+    ok = ok_kv[None, :]
+    if causal:
+        ok = ok & (kv_pos[None, :] <= pc[:, None])
+    if window > 0:
+        ok = ok & ((kv_pos[None, :] > pc[:, None] - window)
+                   | (kv_pos[None, :] < sink))
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)     # fully-masked rows
+    # P rounds to V's dtype before the float32 P·V product
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(dtype).float(), vf)
+    return o.to(dtype)
+
 
 def chunked_sdpa(q, k, v, q_pos, kv_valid_upto, *, causal: bool = True,
                  window: int = 0, sink: int = 0, q_chunk: int = 256,
@@ -54,28 +81,17 @@ def chunked_sdpa(q, k, v, q_pos, kv_valid_upto, *, causal: bool = True,
     ok_kv = kv_pos < kv_valid_upto
     if kv_allowed is not None:
         ok_kv = ok_kv & kv_allowed
+    # K and V upcast once for all chunks: their gradients sum over the
+    # chunks in float32 and round to the model dtype once
     kf, vf = k.float(), v.float()
+    chunk = functools.partial(_sdpa_chunk, causal=causal, window=window,
+                              sink=sink, scale=scale, dtype=v.dtype)
     # the reference pads the last chunk with position -1 rows and drops
     # them; rows are independent, so here the last chunk is just shorter
     cq = min(q_chunk, Sq)
-    outs = []
-    for c0 in range(0, Sq, cq):
-        qc, pc = q[:, c0:c0 + cq], q_pos[c0:c0 + cq]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(), kf) * scale
-        s = constrain(s, "dp", "tp", None, None, None)
-        ok = ok_kv[None, :]
-        if causal:
-            ok = ok & (kv_pos[None, :] <= pc[:, None])
-        if window > 0:
-            ok = ok & ((kv_pos[None, :] > pc[:, None] - window)
-                       | (kv_pos[None, :] < sink))
-        s = s.masked_fill(~ok, float("-inf"))
-        p = torch.softmax(s, dim=-1)
-        p = torch.where(torch.isnan(p), 0.0, p)     # fully-masked rows
-        # P rounds to v's dtype before the float32 P·V product
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), vf)
-        outs.append(o.to(v.dtype))
-    return torch.cat(outs, dim=1)
+    return torch.cat([remat_call(chunk, q[:, c0:c0 + cq], q_pos[c0:c0 + cq],
+                                 kf, vf, kv_pos, ok_kv)
+                      for c0 in range(0, Sq, cq)], dim=1)
 
 
 def _cache_write(cache: dict, new: dict, start: int) -> dict:

@@ -1,4 +1,4 @@
-"""Primitive layers: linear, norms, embeddings, RoPE.
+"""Primitive layers: linear, norms, embeddings, RoPE; ``remat_call``.
 
 The port of the JAX package's ``models/layers.py``.  Parameters live in
 small ``nn.Module`` containers of fp32 master tensors, named as the
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class Params(nn.Module):
@@ -166,3 +167,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant) while
+    autograd records through it (grad mode on and a tensor argument that
+    requires grad): what ``fn`` saves for its backward is recomputed
+    there instead of kept (the reference's ``jax.checkpoint``).  Called
+    directly otherwise, so serving under ``no_grad`` pays nothing.  The
+    recompute runs the same ops on the same inputs, so the gradients are
+    bit for bit those of the direct call."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

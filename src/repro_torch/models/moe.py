@@ -10,11 +10,13 @@ from that slot (it contributes exactly 0; the residual stream carries
 it).  The slots are summed one after another in the model dtype.
 
 The reference computes each slot with one-hot dispatch and combine
-einsums over every expert's (G, E, C, d) buffer.  The port has that
-form too (under ``use_form("dense")``), whose shapes depend on no routing decision,
-so a trace on fake tensors (``launch.dryrun``) can follow it; serving
-and training use the index form: the kept (token, slot) assignments of all
-slots are sorted by expert, each expert that received tokens runs its
+einsums over every expert's (G, E, C, d) buffer, a slot at a time under
+``jax.checkpoint``.  The port has that form too (under
+``use_form("dense")``, each slot under ``remat_call``), whose shapes
+depend on no routing decision, so a trace on fake tensors
+(``launch.dryrun``) can follow it; serving and training use the index
+form: the kept (token, slot) assignments of all slots are sorted by
+expert, each expert that received tokens runs its
 SwiGLU on its rows (one host read of the per-expert counts a call), and
 the rows go back to their (token, slot) places.  So a decode step reads
 the weights of the experts it routes to, not all E of them.  A one-hot
@@ -34,14 +36,15 @@ business).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import Params, linear, linear_init, master, swiglu, \
-    truncated_normal
+from .layers import Params, linear, linear_init, master, remat_call, \
+    swiglu, truncated_normal
 from .mlp import mlp_apply, mlp_init
 from .sharding import constrain
 
@@ -153,31 +156,40 @@ def _experts(p: MoE, x, token, expert, dt):
     return y
 
 
+def _dense_slot(xg, slot_idx, slot_vals, w_gate, w_up, w_down, *, E: int,
+                C: int, dt):
+    """One top-k slot of the reference's dispatch: (G, gt, E, C) one-hot
+    dispatch and combine tensors around the experts' batched SwiGLU over
+    every expert's (G, E, C, d) buffer → (G, gt, d) in ``dt``."""
+    e_onehot = F.one_hot(slot_idx, E)                         # (G, gt, E)
+    rank = torch.cumsum(e_onehot, dim=1) - 1
+    my_rank = (rank * e_onehot).sum(dim=-1)                   # (G, gt)
+    keep = my_rank < C
+    # the rank C (dropped) has no column: an all-zero one-hot row
+    pos = F.one_hot(torch.where(keep, my_rank, C), C + 1)[..., :C]
+    disp = e_onehot.to(dt)[..., None] * pos.to(dt)[:, :, None, :]
+    xe = torch.einsum("gtec,gtd->gecd", disp.float(), xg.float()).to(dt)
+    xe = constrain(xe, "dp", "tp", None, None)
+    h = swiglu(torch.einsum("gecd,edf->gecf", xe, w_gate),
+               torch.einsum("gecd,edf->gecf", xe, w_up))
+    ye = constrain(torch.einsum("gecf,efd->gecd", h, w_down),
+                   "dp", "tp", None, None)
+    comb = disp * (slot_vals * keep).to(dt)[..., None, None]
+    return torch.einsum("gtec,gecd->gtd", comb.float(), ye.float()).to(dt)
+
+
 def _dense_slots(p: MoE, xg, vals, idx, E: int, C: int, dt):
-    """The reference's dispatch: per slot, (G, gt, E, C) one-hot dispatch
-    and combine tensors around the experts' batched SwiGLU over every
-    expert's (G, E, C, d) buffer; the slots summed in ``dt``."""
-    w_gate, w_up, w_down = (p.cast(n, dt) for n in ("w_gate", "w_up",
-                                                    "w_down"))
+    """The reference's dispatch: ``_dense_slot`` for each slot, each under
+    ``remat_call`` (the reference's ``jax.checkpoint`` of ``one_slot``: a
+    slot's one-hots and expert activations are recomputed in the
+    backward instead of living for all k slots), the slots summed in
+    ``dt``."""
+    weights = [p.cast(n, dt) for n in ("w_gate", "w_up", "w_down")]
+    slot = functools.partial(_dense_slot, E=E, C=C, dt=dt)
     out = torch.zeros_like(xg)
-    for slot in range(idx.shape[-1]):
-        e_onehot = F.one_hot(idx[..., slot], E)               # (G, gt, E)
-        rank = torch.cumsum(e_onehot, dim=1) - 1
-        my_rank = (rank * e_onehot).sum(dim=-1)               # (G, gt)
-        keep = my_rank < C
-        # the rank C (dropped) has no column: an all-zero one-hot row
-        pos = F.one_hot(torch.where(keep, my_rank, C), C + 1)[..., :C]
-        disp = e_onehot.to(dt)[..., None] * pos.to(dt)[:, :, None, :]
-        xe = torch.einsum("gtec,gtd->gecd", disp.float(),
-                          xg.float()).to(dt)
-        xe = constrain(xe, "dp", "tp", None, None)
-        h = swiglu(torch.einsum("gecd,edf->gecf", xe, w_gate),
-                   torch.einsum("gecd,edf->gecf", xe, w_up))
-        ye = constrain(torch.einsum("gecf,efd->gecd", h, w_down),
-                       "dp", "tp", None, None)
-        comb = disp * (vals[..., slot] * keep).to(dt)[..., None, None]
-        out = out + torch.einsum("gtec,gecd->gtd", comb.float(),
-                                 ye.float()).to(dt)
+    for k in range(idx.shape[-1]):
+        out = out + remat_call(slot, xg, idx[..., k], vals[..., k],
+                               *weights)
     return out
 
 

@@ -35,22 +35,25 @@ dict.  ``cur_len`` is a host int.
 Remat: with ``cfg.remat``, a forward without caches that autograd
 records runs each layer body (every family's, the hybrid's Mamba layers
 and each application of its shared block, the audio encoder's and
-decoder's) under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of each scanned layer), so a layer's activations
-live only while its backward runs; the recompute is the same ops on the
-same inputs, so the gradients are bit for bit those without remat.
+decoder's) under ``layers.remat_call`` (``torch.utils.checkpoint``; the
+reference's ``jax.checkpoint`` of each scanned layer), so a layer's
+activations live only while its backward runs; the recompute is the same
+ops on the same inputs, so the gradients are bit for bit those without
+remat.  Inside a layer, as in the reference and whatever ``cfg.remat``
+says, each query chunk of ``chunked_sdpa`` and each top-k slot of the
+MoE's dense form is checkpointed again, so a layer's backward holds one
+chunk's (or slot's) intermediates at a time.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_apply, attn_cache_init, attn_init, chunked_sdpa
 from .config import ModelConfig
 from .layers import embed, embed_init, linear, linear_init, master, \
-    rmsnorm, rmsnorm_init, truncated_normal
+    remat_call, rmsnorm, rmsnorm_init, truncated_normal
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
 from .sharding import constrain
@@ -193,10 +196,6 @@ def _call(fn, *args):
     return fn(*args)
 
 
-def _checkpointed(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -291,8 +290,7 @@ def forward(params: LM, tokens, cfg: ModelConfig, *, caches=None,
     positions = cur_len + torch.arange(S, device=x.device)
     sparse = _sparse_kw(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    run = (_checkpointed if cfg.remat and caches is None
-           and torch.is_grad_enabled() else _call)
+    run = remat_call if cfg.remat and caches is None else _call
 
     def layer_caches(name, n):
         return [None] * n if caches is None or not n else caches[name]
@@ -421,9 +419,10 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig):
     """batch: {"tokens": (B, S+1)} (+ "frames" for audio).
 
     Cross entropy runs in sequence chunks of ``cfg.ce_chunk`` positions,
-    each under ``torch.utils.checkpoint`` while autograd records, so the
-    (B, S, vocab) float32 logits are never alive at once; labels past S
-    (when the chunk does not divide S) are −1 and count for nothing.
+    each under ``layers.remat_call`` (a checkpoint while autograd
+    records), so the (B, S, vocab) float32 logits are never alive at
+    once; labels past S (when the chunk does not divide S) are −1 and
+    count for nothing.
     Returns (ce + 0.01·aux, {"ce", "aux"}), float32 0-dim tensors.
     """
     tokens = batch["tokens"]
@@ -436,12 +435,11 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig):
     if pad:
         feats = F.pad(feats, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    run = _checkpointed if torch.is_grad_enabled() else _call
     tot = torch.zeros((), dtype=torch.float32, device=feats.device)
     cnt = torch.zeros((), dtype=torch.float32, device=feats.device)
     for c0 in range(0, S + pad, C):
-        t, n = run(lambda xc, yc: _chunk_loss(params, xc, yc, cfg),
-                   feats[:, c0:c0 + C], labels[:, c0:c0 + C])
+        t, n = remat_call(lambda xc, yc: _chunk_loss(params, xc, yc, cfg),
+                          feats[:, c0:c0 + C], labels[:, c0:c0 + C])
         tot, cnt = tot + t, cnt + n
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -19,12 +19,21 @@
 * ``probe_buffers``' largest tensor of the ``mamba2-780m`` ``long_500k``
   smoke cell is in_proj's local weight in bf16, (d/4) × (proj/4) × 2
   bytes.
+* ``launch.mesh.sharded`` repairs the training step's microbatch split
+  (a batch sharded over ``data`` unflattened into k microbatches, fewer
+  than the ``data`` axis) by moving the shard, not by replicating it:
+  on the 16-rank fake mesh the split's microbatch keeps its batch rows
+  sharded over ``data``; on four spawned gloo ranks, a (2, 2) mesh
+  (``tests/torch_reshard_cases.py``, about 8 s), each rank's local shard
+  is its slice of the unsharded view's result, and the gathered result
+  is that result.
 
 In-process tests start the fake process group of 16 ranks in a fixture
 and destroy it after (a process has one default group).
 """
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -283,3 +292,63 @@ def test_sharded_raises_on_an_op_with_no_strategy(fake16):
             if f is not None:
                 t[flip] = f
         prop.propagate_op_sharding.cache_clear()
+
+
+def test_sharded_moves_the_data_shard_of_the_microbatch_split(fake16):
+    # the training step's split of a batch sharded over data (4 ways)
+    # into 2 microbatches: DTensor refuses the unflatten (2 rows over 4);
+    # the retry moves the data shard to another dim, runs the view, and
+    # puts the shard on the microbatch's batch rows, which the split's
+    # select then keeps: no replication over data
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import sharded
+    k, Bt, S1 = 2, 8, 9
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(Bt, S1, dtype=torch.int32),
+                              fake16, [Shard(0), Replicate()],
+                              src_data_rank=None)
+        with sharded(fake16) as rs:
+            split = x.reshape((k, Bt // k) + tuple(x.shape[1:]))
+            mb = split[1]
+        assert rs.ops == {"aten.view.default@move:data": 1}
+        assert tuple(split.placements) == (Shard(1), Replicate())
+        assert tuple(split.to_local().shape) == (k, Bt // k // 4, S1)
+        assert tuple(mb.placements) == (Shard(0), Replicate())
+        assert tuple(mb.to_local().shape) == (Bt // k // 4, S1)
+
+
+@pytest.fixture(scope="module")
+def reshard_runs(tmp_path_factory):
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_reshard_cases as cases
+    out = tmp_path_factory.mktemp("reshard")
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=cases.port_worker,
+                         args=(r, 4, str(out / "store"), str(out)))
+             for r in range(4)]
+    for p in ranks:
+        p.start()
+    for p in ranks:
+        p.join(240)
+    alive = [p.pid for p in ranks if p.is_alive()]
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+    assert not alive and [p.exitcode for p in ranks] == [0] * 4, (
+        alive, [p.exitcode for p in ranks])
+    return cases, [np.load(out / f"rank{r}.npz") for r in range(4)]
+
+
+def test_moved_data_shard_holds_the_unsharded_views_values(reshard_runs):
+    cases, runs = reshard_runs
+    want = cases.batch().reshape(cases.VIEW)
+    rows = cases.VIEW[1] // 2
+    for rank, got in enumerate(runs):
+        data = rank // 2                  # (2, 2) mesh: rank = 2·data + model
+        assert json.loads(str(got["ops"])) == {
+            "aten.view.default@move:data": 1}
+        assert str(got["placements"]) == "(Shard(dim=1), Replicate())"
+        np.testing.assert_array_equal(
+            got["local"], want[:, data * rows:(data + 1) * rows])
+        np.testing.assert_array_equal(got["full"], want)

@@ -5,7 +5,9 @@ against ``jax.value_and_grad(repro.models.transformer.loss_fn)`` for all
 ten smoke configs in float32, on the reference's parameters
 (``lm_params_from_numpy``) and the same NumPy-seeded tokens (and frames
 for the audio family).  ``ce_chunk`` is 7 against S = 24, so the chunks
-do not divide S and the padded labels run.  Tolerance: 1e-4 absolute
+do not divide S and the padded labels run; ``q_chunk`` is 8, so
+attention runs three query chunks, each under its checkpoint (32 audio
+frames: four).  Tolerance: 1e-4 absolute
 and relative; the measured worst is about 2.3e-6 relative (the sums in
 another order).  The reference is compiled with
 ``xla_allow_excess_precision`` off, as ``tests/test_torch_lm_models.py``
@@ -58,11 +60,11 @@ ARCHS = ("qwen2_0_5b", "llama3_2_3b", "yi_9b", "qwen3_14b", "zamba2_2_7b",
 TOL = 1e-4
 XLA_OPTS = {"xla_allow_excess_precision": False,
             "xla_backend_optimization_level": 0}
-B, S1, CE_CHUNK = 2, 25, 7            # tokens (B, S + 1): S = 24
+B, S1, CE_CHUNK, Q_CHUNK = 2, 25, 7, 8  # tokens (B, S + 1): S = 24
 
 
 def _configs(arch, **over):
-    kw = dict(dtype="float32", ce_chunk=CE_CHUNK, **over)
+    kw = dict(dtype="float32", ce_chunk=CE_CHUNK, q_chunk=Q_CHUNK, **over)
     return (dataclasses.replace(ref_smoke(arch), remat=False, **kw),
             dataclasses.replace(get_smoke_config(arch), **kw))
 
