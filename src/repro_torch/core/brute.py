@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import host_read
 from .regions import Regions
 
 _I32 = torch.int32
@@ -48,7 +49,7 @@ def bfm_count_per_sub(S: Regions, U: Regions, tile: int = 4096
 
 def bfm_count(S: Regions, U: Regions, tile: int = 4096) -> int:
     """Total number of overlapping (s, u) pairs (python int, exact)."""
-    return int(bfm_count_per_sub(S, U, tile=tile).sum(dtype=torch.int64))
+    return host_read(bfm_count_per_sub(S, U, tile=tile).sum(dtype=torch.int64))
 
 
 def compact_mask_pairs(mask: torch.Tensor, max_pairs: int):

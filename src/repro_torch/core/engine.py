@@ -84,6 +84,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..spans import host_read, span
 from . import brute, grid, itm, sbm
 from .pairs import DensePairs, PairsResult, ShardedPairs, to_numpy
 from .regions import Regions, resolve_device
@@ -352,7 +353,8 @@ class MatchPlan:
             pairs, k = self._pairs_impl(S, U, out_cap=cap)
             if max(k, 1) != cap:
                 cap = self._resolve_cap(k)
-                pairs, k = self._pairs_impl(S, U, out_cap=cap)
+                with span("engine.reemit"):
+                    pairs, k = self._pairs_impl(S, U, out_cap=cap)
             return _wrap_pairs(pairs, k)
         if spec.capacity == "fixed":
             pairs, k = self._pairs_impl(S, U,
@@ -364,7 +366,8 @@ class MatchPlan:
         pairs, k = self._pairs_impl(S, U, out_cap=cap)
         if k > cap:
             cap = self._resolve_cap(k)
-            pairs, k = self._pairs_impl(S, U, out_cap=cap)
+            with span("engine.reemit"):
+                pairs, k = self._pairs_impl(S, U, out_cap=cap)
         return _wrap_pairs(pairs, k)
 
     def _pairs_impl(self, S: Regions, U: Regions, out_cap: int):
@@ -476,7 +479,7 @@ class MatchPlan:
         u_lo, u_hi = U.lo[:, 0], U.hi[:, 0]
         order = self._itm_order(u_lo)
         counts = self._itm_counts(T, u_lo, u_hi, order)
-        per_q = max(int(counts.max()), 1)
+        per_q = max(host_read(counts.max()), 1)
         if self.spec.capacity == "grow":   # bound the buffer shapes
             per_q = _pow2(per_q)
         ids, _ = self._itm_pairs(T, u_lo, u_hi, per_q, order)
@@ -697,7 +700,7 @@ def sbm_verify_dims(S: Regions, U: Regions, cand: torch.Tensor,
     ok = ((S.lo[si, 1:] < U.hi[ui, 1:])
           & (U.lo[ui, 1:] < S.hi[si, 1:])).all(dim=-1)
     ok &= valid
-    return select_rows(cand, ok, max_pairs), int(ok.sum())
+    return select_rows(cand, ok, max_pairs), host_read(ok.sum())
 
 
 @functools.lru_cache(maxsize=256)

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..spans import host_read
 from .regions import Regions
 
 _I32 = torch.int32
@@ -133,7 +134,7 @@ def gbm_count(S: Regions, U: Regions, ncells: int = 3000,
         chunk -= 1
     counts = _gbm_cell_counts(S, U, lb_t, width_t, ncells, cap_s, cap_u,
                               span_s, span_u, chunk)
-    return int(counts.sum())
+    return host_read(counts.sum())
 
 
 # ---------------------------------------------------------------------------

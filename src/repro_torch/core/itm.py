@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..spans import span
 from .regions import Regions
 from .sbm import _total
 
@@ -97,8 +98,9 @@ def _build(lo_1d: torch.Tensor, hi_1d: torch.Tensor, n: int) -> ITree:
 
 def build_tree(R: Regions, dim: int = 0) -> ITree:
     """The interval tree of ``R``'s dimension ``dim``, on ``R``'s device."""
-    lo, hi = R.dim(dim)
-    return _build(lo.float(), hi.float(), R.n)
+    with span("itm.build_tree"):
+        lo, hi = R.dim(dim)
+        return _build(lo.float(), hi.float(), R.n)
 
 
 # ---------------------------------------------------------------------------

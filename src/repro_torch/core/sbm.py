@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import host_read, span
 from . import grid
 from .regions import Regions
 
@@ -65,9 +66,10 @@ def _endpoints_flat(s_lo, s_hi, u_lo, u_hi):
 def _endpoint_stream(s_lo, s_hi, u_lo, u_hi):
     """Lex-sorted endpoint stream of one dimension: ``(is_lo, is_upd)``,
     int32 ``(2(n+m),)`` in sweep order (value asc, hi before lo)."""
-    v, is_lo, is_upd = _endpoints_flat(s_lo, s_hi, u_lo, u_hi)
-    order = _lexsort2(is_lo, v)
-    return is_lo[order], is_upd[order]
+    with span("sbm.endpoint_sort"):
+        v, is_lo, is_upd = _endpoints_flat(s_lo, s_hi, u_lo, u_hi)
+        order = _lexsort2(is_lo, v)
+        return is_lo[order], is_upd[order]
 
 
 def _stream_contribs(is_lo, is_upd):
@@ -93,8 +95,9 @@ def _sweep_contribs(s_lo, s_hi, u_lo, u_hi) -> torch.Tensor:
 
 
 def _total(c: torch.Tensor) -> int:
-    """Exact int64 sum of per-item counts as a python int."""
-    return int(c.sum(dtype=torch.int64))
+    """Exact int64 sum of per-item counts as a python int, read to the
+    host through ``spans.host_read``."""
+    return host_read(c.sum(dtype=torch.int64))
 
 
 def sbm_count_sweep(S: Regions, U: Regions) -> int:
@@ -195,32 +198,34 @@ def _twopass_phase1(s_lo, s_hi, u_lo, u_hi, max_pairs: int):
     class-B), ``offs`` the (n+m+1,) exclusive-scan output offsets
     saturated at ``max_pairs``.
     """
-    s_lo, s_hi = s_lo.contiguous(), s_hi.contiguous()
-    u_lo, u_hi = u_lo.contiguous(), u_hi.contiguous()
-    perm_u = torch.argsort(u_lo, stable=True)
-    perm_s = torch.argsort(s_lo, stable=True)
-    u_lo_sorted = u_lo[perm_u]
-    s_lo_sorted = s_lo[perm_s]
+    with span("sbm.pass1"):
+        s_lo, s_hi = s_lo.contiguous(), s_hi.contiguous()
+        u_lo, u_hi = u_lo.contiguous(), u_hi.contiguous()
+        perm_u = torch.argsort(u_lo, stable=True)
+        perm_s = torch.argsort(s_lo, stable=True)
+        u_lo_sorted = u_lo[perm_u]
+        s_lo_sorted = s_lo[perm_s]
 
-    aA = torch.searchsorted(u_lo_sorted, s_lo, right=False)
-    rA = torch.searchsorted(u_lo_sorted, s_hi, right=False)
-    bB = torch.searchsorted(s_lo_sorted, u_lo, right=True)
-    cB = torch.searchsorted(s_lo_sorted, u_hi, right=False)
-    # the clamp guards the offsets against degenerate (lo == hi)
-    # intervals, which break the precondition but must not corrupt
-    # emission for the well-formed regions
-    cnt_a = (rA - aA).clamp_(min=0).to(_I32)
-    cnt_b = (cB - bB).clamp_(min=0).to(_I32)
+        aA = torch.searchsorted(u_lo_sorted, s_lo, right=False)
+        rA = torch.searchsorted(u_lo_sorted, s_hi, right=False)
+        bB = torch.searchsorted(s_lo_sorted, u_lo, right=True)
+        cB = torch.searchsorted(s_lo_sorted, u_hi, right=False)
+        # the clamp guards the offsets against degenerate (lo == hi)
+        # intervals, which break the precondition but must not corrupt
+        # emission for the well-formed regions
+        cnt_a = (rA - aA).clamp_(min=0).to(_I32)
+        cnt_b = (cB - bB).clamp_(min=0).to(_I32)
 
-    starts = torch.cat([aA, bB]).to(_I32)
-    counts = torch.cat([cnt_a, cnt_b])
-    # saturating scan: int64 cumsum clamped at the limit equals the
-    # reference's min(a + b, lim) scan for counts >= 0
-    incl = torch.cumsum(counts, 0, dtype=torch.int64).clamp_(max=max_pairs)
-    offs = torch.cat([torch.zeros(1, dtype=_I32, device=counts.device),
-                      incl.to(_I32)])
-    return (perm_s.to(_I32), perm_u.to(_I32), starts, counts, offs,
-            cnt_a, cnt_b)
+        starts = torch.cat([aA, bB]).to(_I32)
+        counts = torch.cat([cnt_a, cnt_b])
+        # saturating scan: int64 cumsum clamped at the limit equals the
+        # reference's min(a + b, lim) scan for counts >= 0
+        incl = torch.cumsum(counts, 0,
+                            dtype=torch.int64).clamp_(max=max_pairs)
+        offs = torch.cat([torch.zeros(1, dtype=_I32, device=counts.device),
+                          incl.to(_I32)])
+        return (perm_s.to(_I32), perm_u.to(_I32), starts, counts, offs,
+                cnt_a, cnt_b)
 
 
 def _twopass_slots(offs, counts, starts, perm_s, perm_u, *, max_pairs: int):

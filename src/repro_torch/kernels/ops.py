@@ -82,7 +82,7 @@ def bfm_count_cuda(S: Regions, U: Regions, *, ts: int = 256,
     s_lo, s_hi = _pad_regions(S.lo, S.hi, ts)
     u_lo, u_hi = _pad_regions(U.lo, U.hi, tu)
     tiles = bfm_kernel.bfm_tile_counts(s_lo, s_hi, u_lo, u_hi, ts=ts, tu=tu)
-    return int(tiles.sum(dtype=torch.int64))
+    return sbm._total(tiles)
 
 
 def bfm_mask_cuda(S: Regions, U: Regions) -> torch.Tensor:
@@ -129,7 +129,7 @@ def sbm_count_cuda(S: Regions, U: Regions) -> int:
     if S.n == 0 or U.n == 0:
         return 0
     c = _sweep(S.lo[:, 0], S.hi[:, 0], U.lo[:, 0], U.hi[:, 0])
-    return int(c.sum(dtype=torch.int64))
+    return sbm._total(c)
 
 
 def emit_route_bytes(n: int, m: int) -> dict:
