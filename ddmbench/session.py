@@ -237,6 +237,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         t_read = time.perf_counter()
         win.trace = tr.reduce(tr.records(prof), TRACE_SKIP)
         info.append(f"trace read in {time.perf_counter() - t_read!r} s")
+        if win.trace is not None:
+            info.append(f"device ops with no launch call: "
+                        f"{len(win.trace.unmatched)} of {len(win.trace.ops)}")
     info.extend(_program_lines(ses))
     return win, checks, attempted, failed, info
 

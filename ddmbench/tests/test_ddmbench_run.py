@@ -122,4 +122,5 @@ def test_a_cell_on_the_card(root):
                          time.perf_counter())
     assert res["correct"] is True
     assert res["device"]["platform"] == "gpu"
-    assert "k1_roofline" in res["metrics"]
+    assert {"k1_roofline", "lexsort_ms", "host_reads_per_tick",
+            "stage_idle_ms"} <= set(res["metrics"])
